@@ -1,0 +1,28 @@
+"""cairo-tpu-torch: the evx1 fast-mode codec on PyTorch and CUDA (Hopper).
+
+The counterpart of the `cairo_tpu` package, which stays the reference.
+Public surface:
+  GpuEncoder / GpuDecoder  -- fast-mode encode and decode on a CUDA card
+                              (or on the CPU with device="cpu"); streams
+                              are byte-identical to cairo_tpu's TpuEncoder.
+  checkpoint / metrics     -- session save/resume, per-frame stats.
+
+Layout mirrors cairo_tpu: `gpu/` is the counterpart of `cairo_tpu/tpu/`,
+with `cuda_motion.py` and `cuda_pred.py` in place of the Pallas kernels
+and the CUDA sources under `gpu/csrc/`. The package imports torch, numpy
+and the standard library only.
+"""
+
+from . import checkpoint, metrics, tables
+from .blocktypes import BlockTable
+
+__version__ = "0.1.0"
+__all__ = ["GpuEncoder", "GpuDecoder", "BlockTable", "checkpoint",
+           "metrics", "tables"]
+
+
+def __getattr__(name):
+    if name in ("GpuEncoder", "GpuDecoder"):
+        from .gpu import api
+        return getattr(api, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,188 @@
+"""Builds the port's native libraries from the sources in the checkout.
+
+Two shared libraries with plain C interfaces, loaded with ctypes:
+  * the CUDA kernels (csrc/*.cu): one `nvcc` per source, all started
+    together, then one link; built for sm_90a (Hopper) on first use;
+  * the host entropy coder and sequential decoder (native/*.cpp), g++.
+
+Each library lands in `<repo>/.torch_build/<sha256 of sources and
+flags>/`. A build writes to a private temporary name and `os.replace`s
+the finished file into place, so a build that is cut off leaves nothing
+that a later run would wait on or load, and concurrent builds (test
+workers) never see a half-written library. No PyTorch header is compiled
+and no lock file is taken.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+BUILD_ROOT = _PKG.parents[1] / ".torch_build"
+
+CSRC = sorted((_PKG / "gpu" / "csrc").glob("*.cu"))
+NATIVE_SRC = [_PKG / "native" / "entropy.cpp", _PKG / "native" / "decoder.cpp"]
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _digest(sources, flags) -> str:
+    h = hashlib.sha256()
+    for f in flags:
+        h.update(f.encode() + b"\0")
+    for s in sources:
+        h.update(s.name.encode() + b"\0" + s.read_bytes())
+    return h.hexdigest()[:24]
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"build failed: {' '.join(map(str, cmd))}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def nvcc_path() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _build_native(out: Path):
+    _run(["g++", *GXX_FLAGS, "-o", str(out), *map(str, NATIVE_SRC)])
+
+
+def _build_kernels(out: Path, verbose: bool = False):
+    nvcc = nvcc_path()
+    tmpdir = Path(tempfile.mkdtemp(prefix="obj.", dir=out.parent))
+    try:
+        objs = [tmpdir / (s.stem + ".o") for s in CSRC]
+        extra = ["-Xptxas", "-v"] if verbose else []
+        with ThreadPoolExecutor(len(CSRC)) as pool:
+            logs = list(pool.map(
+                lambda so: _run([nvcc, *NVCC_FLAGS, *extra, "-c",
+                                 str(so[0]), "-o", str(so[1])]),
+                zip(CSRC, objs)))
+        _run([nvcc, "-shared", "-o", str(out), *map(str, objs)])
+        return "".join(logs)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def _ensure(name: str, sources, flags, build_fn, **kw) -> Path:
+    """Path of the built library `name`, building it if it is missing."""
+    final = BUILD_ROOT / _digest(sources, flags) / f"lib{name}.so"
+    if final.exists():
+        return final
+    final.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".lib{name}.", suffix=".so.tmp",
+                               dir=final.parent)
+    os.close(fd)
+    try:
+        log = build_fn(Path(tmp), **kw)
+        if log:
+            print(log, end="")
+        os.replace(tmp, final)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return final
+
+
+def native_library_path() -> Path:
+    return _ensure("cairo_native", NATIVE_SRC, ["g++"] + GXX_FLAGS,
+                   _build_native)
+
+
+def kernel_library_path(verbose: bool = False) -> Path:
+    return _ensure("cairo_kernels", CSRC, ["nvcc"] + NVCC_FLAGS,
+                   _build_kernels, verbose=verbose)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library "native" or "kernels" (built on first use)."""
+    with _lock:
+        if name not in _loaded:
+            path = (native_library_path() if name == "native"
+                    else kernel_library_path())
+            _loaded[name] = ctypes.CDLL(str(path))
+        return _loaded[name]
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Builds both libraries side by side; returns seconds per library."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        k = pool.submit(timed, lambda: kernel_library_path(verbose))
+        n = pool.submit(timed, native_library_path)
+        return {"kernels_s": k.result(), "native_s": n.result()}
+
+
+# ----------------------------------------------------------------- binding
+
+_fns: dict[str, object] = {}
+
+
+def kernel_fn(name: str, sig: str):
+    """ctypes handle of kernel launcher `name` in the kernel library. `sig`
+    has one letter per argument: 'p' for a device pointer or the stream
+    (c_void_p, never a 32-bit int), 'i' for an int (c_int)."""
+    if name not in _fns:
+        fn = getattr(load("kernels"), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                       for c in sig]
+        _fns[name] = fn
+    return _fns[name]
+
+
+def check(t, name: str, dtype, shape=None):
+    """Raises unless `t` is a contiguous CUDA tensor of `dtype` (and
+    `shape`, where given) that the kernel can take as it is."""
+    import torch
+
+    if not torch.is_tensor(t) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def launch(fn, device, *args):
+    """Launches on the current stream of `device`; raises on a CUDA error
+    returned by the launcher (a launch the runtime refused never runs)."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")

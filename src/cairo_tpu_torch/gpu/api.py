@@ -1,0 +1,472 @@
+"""Host-side encoder/decoder around the torch pipeline and the native
+entropy coder (counterpart of cairo_tpu/tpu/api.py: TpuEncoder and
+TpuDecoder).
+
+GpuEncoder produces format-conformant evx1 streams in fast mode, byte-
+identical to TpuEncoder's. GpuDecoder reconstructs fast-mode streams on
+the device; frames with intra-motion blocks or motion beyond the fast
+reach (reference-encoder streams) take the native sequential C++
+decoder, as TpuDecoder does with use_wavefront_decode = False, and are
+counted in `host_frames`. Both run on `device` ("cuda" by default, which
+raises without a card; the tests pass "cpu"). Frames are processed one
+at a time: encode_many / decode_many give the same results as a loop.
+"""
+
+from __future__ import annotations
+
+import struct
+import time
+
+import numpy as np
+import torch
+
+from .. import metrics, native, tables
+from ..blocktypes import BlockTable, COPY_BIT, FRAME_INTER, FRAME_INTRA, \
+    INTRA_BIT, MOTION_BIT
+from ..cpuref import imaging as cpu_imaging
+from ..cpuref.stream import (FRAME_DESC_SIZE, HEADER_SIZE, _FRAME_FMT,
+                             pack_header, parse_header)
+from ..xmath import clip_range
+from . import engine
+from . import wire as wire_mod
+
+MB = tables.MACROBLOCK_SIZE
+RING = tables.REFERENCE_FRAME_COUNT
+STATE_KEYS = ("ring_y", "ring_u", "ring_v", "coef_y", "coef_u", "coef_v")
+_BT_FIELDS = ("block_type", "prediction_target", "motion_x", "motion_y",
+              "sp_pred", "sp_amount", "sp_index", "q_index", "variance")
+
+
+def _align(v):
+    return (v + MB - 1) // MB * MB
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' to run "
+                           "the plain PyTorch path on the CPU")
+    return dev
+
+
+def state_from_numpy(arrays, device) -> dict:
+    """The port's state from the arrays of TpuEncoder/TpuDecoder.state_dict
+    (or the port's own): ring and coefficient planes; the XLA-only win_*
+    window caches are dropped."""
+    return {k: torch.as_tensor(np.ascontiguousarray(arrays[k], np.int16),
+                               device=device).clone() for k in STATE_KEYS}
+
+
+def _state_to_numpy(state) -> dict:
+    return {k: state[k].cpu().numpy() for k in STATE_KEYS}
+
+
+def _upload(buf: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(buf)).to(device)
+
+
+class GpuEncoder:
+    def __init__(self, config=None, device="cuda"):
+        from ..config import CONFORMANCE
+        self.config = config if config is not None else CONFORMANCE
+        if not self.config.tpu_supported:
+            raise NotImplementedError(
+                "this CodecConfig combination is not supported by the fast "
+                "path (cairo_tpu.cpuref.api.Evx1Encoder runs it)")
+        self.device = resolve_device(device)
+        self._state = None
+        self._last_out = None
+        self._last_rgb = None
+        self._stale_q = None
+        self._stale_var = None
+        self.frame_type = FRAME_INTRA
+        self.frame_index = 0
+        self.quality = self.config.default_quality
+        self.width = self.height = 0
+        self.last_stats = None
+
+    def set_quality(self, quality: int):
+        self.quality = int(clip_range(quality, 1, 31))
+
+    def insert_intra(self):
+        self.frame_type = FRAME_INTRA
+
+    def _begin_frame(self, rgb):
+        height, width = rgb.shape[:2]
+        header = b""
+        if self._state is None:
+            self.width, self.height = width, height
+            self._aw, self._ah = _align(width), _align(height)
+            self._state = engine.init_state(self._aw, self._ah, self.device)
+            # host mirror of the device-persistent coefficient planes
+            # (carries stale copy-block DCs for the serializer's DC chains)
+            self._coef_y = np.zeros((self._ah, self._aw), np.int16)
+            self._coef_u = np.zeros((self._ah // 2, self._aw // 2), np.int16)
+            self._coef_v = np.zeros((self._ah // 2, self._aw // 2), np.int16)
+            header = pack_header(width, height,
+                                 self.config.reference_frame_count)
+        if (width, height) != (self.width, self.height):
+            raise ValueError("frame dimensions changed mid-stream")
+        return header
+
+    def _dispatch(self, rgb):
+        """Runs one frame's device work; returns what the entropy stage
+        needs."""
+        header = self._begin_frame(rgb)
+        frame_desc = struct.pack(_FRAME_FMT, self.frame_type,
+                                 self.frame_index, self.quality)
+        t0 = time.perf_counter()
+        src_fmt, src_buf = native.rgb_to_yuv5d(rgb, self._aw, self._ah,
+                                               self.frame_index, self.quality)
+        self._state, out = engine.encode_step(
+            _upload(src_buf, self.device), self._state, aligned_w=self._aw,
+            aligned_h=self._ah, frame_w=self.width, frame_h=self.height,
+            is_inter=self.frame_type == FRAME_INTER,
+            n_refs=self.config.reference_frame_count,
+            deblock=self.config.enable_deblocking,
+            adaptive=self.config.adaptive_quantization, src_fmt=src_fmt)
+        pending = dict(header=header, frame_desc=frame_desc, out=out,
+                       frame_index=self.frame_index,
+                       frame_type=self.frame_type, quality=self.quality,
+                       t_dispatch=t0)
+        self._last_rgb = rgb
+        if self.config.enable_inter_frames:
+            self.frame_type = FRAME_INTER
+        rate = self.config.periodic_intra_rate
+        if rate and (self.frame_index + 1) % rate == 0:
+            self.insert_intra()
+        self.frame_index += 1
+        return pending
+
+    def _finish(self, pending) -> bytes:
+        dev_out = pending["out"]
+        buf = dev_out["wire"].cpu().numpy()
+        t_dev = time.perf_counter()
+        n = (self._aw // MB) * (self._ah // MB)
+        out, count, pos, val = wire_mod.unpack_encode_wire(
+            buf, n, tail=lambda: dev_out["wire_tail"].cpu().numpy())
+        copy = (out["block_type"].astype(np.int32) & COPY_BIT) != 0
+        if count <= wire_mod.COO_K:
+            wire_mod.apply_coo_np(self._coef_y, self._coef_u, self._coef_v,
+                                  copy, count, pos, val)
+        else:  # COO overflow: take the exact planes
+            np.copyto(self._coef_y, dev_out["coef_y"].cpu().numpy())
+            np.copyto(self._coef_u, dev_out["coef_u"].cpu().numpy())
+            np.copyto(self._coef_v, dev_out["coef_v"].cpu().numpy())
+        cy, cu, cv = self._coef_y, self._coef_u, self._coef_v
+        if pending["frame_index"] == 0:
+            # one-time wire self-check (guards the device byte order)
+            assert np.array_equal(out["block_type"],
+                                  dev_out["block_type"].cpu().numpy())
+            assert np.array_equal(out["variance"],
+                                  dev_out["variance"].cpu().numpy())
+            assert np.array_equal(cy, dev_out["coef_y"].cpu().numpy())
+        # copy blocks keep the table's previous q_index/variance (the
+        # reference's clear_block_desc quirk, common.cpp:67-73); peek-only
+        out = dict(out)
+        if self._stale_q is not None:
+            out["q_index"] = np.where(copy, self._stale_q, out["q_index"])
+            out["variance"] = np.where(copy, self._stale_var, out["variance"])
+        self._stale_q = out["q_index"]
+        self._stale_var = out["variance"]
+        self._last_out = out
+
+        bt = BlockTable(**{k: out[k] for k in _BT_FIELDS})
+        slice_bytes, _ = native.encode_slice(bt, cy, cu, cv)
+        t_ent = time.perf_counter()
+        chunk = pending["header"] + pending["frame_desc"] + slice_bytes
+        self.last_stats = metrics.frame_stats(
+            pending["frame_index"], pending["frame_type"],
+            pending["quality"], len(chunk), out["block_type"],
+            out["q_index"],
+            stage_ms={"device": (t_dev - pending["t_dispatch"]) * 1e3,
+                      "entropy": (t_ent - t_dev) * 1e3})
+        return chunk
+
+    def encode(self, rgb: np.ndarray) -> bytes:
+        """Encodes an (H, W, 3) uint8 frame; returns its byte chunk."""
+        return self._finish(self._dispatch(rgb))
+
+    def encode_many(self, frames):
+        """Yields one byte chunk per input frame."""
+        for frame in frames:
+            yield self.encode(frame)
+
+    # -- debug/peek views (evx1enc.cpp:170-305 parity) ---------------------
+
+    def peek_source(self) -> np.ndarray:
+        """Input frame round-tripped through YUV 4:2:0."""
+        y, u, v = cpu_imaging.rgb_to_yuv420(self._last_rgb)
+        return cpu_imaging.yuv420_to_rgb(y, u, v, self.width, self.height)
+
+    def peek_destination(self) -> np.ndarray:
+        """The last frame's reconstruction, as the decoder will see it."""
+        slot = (self.frame_index - 1) % RING
+        y, u, v = (self._state[k][slot].cpu().numpy()
+                   for k in ("ring_y", "ring_u", "ring_v"))
+        return cpu_imaging.yuv420_to_rgb(y, u, v, self.width, self.height)
+
+    def _block_map(self, colors: np.ndarray) -> np.ndarray:
+        img = colors.reshape(self._ah // MB, self._aw // MB, 3)
+        img = img.astype(np.uint8).repeat(MB, axis=0).repeat(MB, axis=1)
+        return img[:self.height, :self.width]
+
+    def peek_block_table(self) -> np.ndarray:
+        bt = self._last_out["block_type"].astype(np.int32)
+        colors = np.stack([255 * (bt & 1), 255 * ((bt >> 1) & 1),
+                           255 * ((bt >> 2) & 1)], axis=-1)
+        return self._block_map(colors)
+
+    def peek_quant_table(self) -> np.ndarray:
+        bt = self._last_out["block_type"].astype(np.int32)
+        qp = self._last_out["q_index"].astype(np.int32)
+        level = (255 - 15 * qp).astype(np.uint8)
+        colors = np.stack([level, level, level], axis=-1)
+        colors[(bt & COPY_BIT) != 0] = (255, 0, 0)
+        return self._block_map(colors)
+
+    def peek_block_variance(self) -> np.ndarray:
+        """Grayscale per-MB variance map; copy blocks red (evx1enc.cpp:248)."""
+        bt = self._last_out["block_type"].astype(np.int32)
+        var = self._last_out["variance"].astype(np.int32)
+        level = np.clip(var // 30, 0, 255).astype(np.uint8)
+        colors = np.stack([level, level, level], axis=-1)
+        colors[(bt & COPY_BIT) != 0] = (255, 0, 0)
+        return self._block_map(colors)
+
+    def peek_spmp_table(self) -> np.ndarray:
+        """Sub-pel motion map: blue=half, green=quarter (evx1enc.cpp:274)."""
+        sp_pred = self._last_out["sp_pred"].astype(bool)
+        sp_amount = self._last_out["sp_amount"].astype(bool)
+        colors = np.zeros(sp_pred.shape + (3,), np.int32)
+        colors[sp_pred & sp_amount] = (0, 255, 0)
+        colors[sp_pred & ~sp_amount] = (0, 0, 255)
+        return self._block_map(colors)
+
+    # -- checkpoint / resume (checkpoint.py format, TpuEncoder-compatible) --
+
+    def state_dict(self):
+        meta = dict(kind="gpu_encoder", width=self.width, height=self.height,
+                    frame_index=self.frame_index, frame_type=self.frame_type,
+                    quality=self.quality, init=self._state is not None)
+        arrays = _state_to_numpy(self._state) if self._state is not None \
+            else {}
+        return meta, arrays
+
+    def load_state_dict(self, meta, arrays):
+        """Resumes from a GpuEncoder or a TpuEncoder checkpoint."""
+        self.frame_index = meta["frame_index"]
+        self.frame_type = meta["frame_type"]
+        self.quality = meta["quality"]
+        if meta["init"]:
+            self.width, self.height = meta["width"], meta["height"]
+            self._aw, self._ah = _align(self.width), _align(self.height)
+            self._state = state_from_numpy(arrays, self.device)
+            self._coef_y = np.array(arrays["coef_y"], np.int16)
+            self._coef_u = np.array(arrays["coef_u"], np.int16)
+            self._coef_v = np.array(arrays["coef_v"], np.int16)
+
+
+class GpuDecoder:
+    def __init__(self, config=None, device="cuda"):
+        from ..config import CONFORMANCE
+        self.config = config if config is not None else CONFORMANCE
+        if not self.config.tpu_supported:
+            raise NotImplementedError(
+                "this CodecConfig combination is not supported by the fast "
+                "path (cairo_tpu.cpuref.api.Evx1Decoder runs it)")
+        self.device = resolve_device(device)
+        self._state = None
+        self._native = None  # sequential C++ decoder once a stream needs it
+        self.frame_index = 0
+        self.host_frames = 0  # frames that took the native host decoder
+        self.width = self.height = 0
+        self.last_stats = None
+
+    def _init(self, width, height):
+        self.width, self.height = width, height
+        self._aw, self._ah = _align(width), _align(height)
+        self._state = engine.init_state(self._aw, self._ah, self.device)
+        n = (self._aw // MB) * (self._ah // MB)
+        self._bt = BlockTable.zeros(n)
+        self._coef_y = np.zeros((self._ah, self._aw), np.int16)
+        self._coef_u = np.zeros((self._ah // 2, self._aw // 2), np.int16)
+        self._coef_v = np.zeros((self._ah // 2, self._aw // 2), np.int16)
+        total = self._ah * self._aw + 2 * (self._ah // 2) * (self._aw // 2)
+        self._yuv_tmp = np.empty(total, np.int16)
+        # the delta wire only wins once its packed savings beat its fixed
+        # exception section; small frames keep the 8-bit wire
+        self._out_fmt = ("yuv5d"
+                         if wire_mod.yuv5d_wire_nbytes(self._ah, self._aw)
+                         < wire_mod.yuv_wire_nbytes(self._ah, self._aw)
+                         else "yuv8")
+
+    def _dispatch_decode(self, chunk: bytes) -> dict:
+        """Parses one chunk and runs its device work. Frames that need the
+        sequential decoder are reconstructed on the host here."""
+        offset = 0
+        if self._state is None:
+            width, height = parse_header(
+                chunk[:HEADER_SIZE], self.config.reference_frame_count)
+            self._init(width, height)
+            offset = HEADER_SIZE
+        ftype, index, quality = struct.unpack(
+            _FRAME_FMT, chunk[offset:offset + FRAME_DESC_SIZE])
+        if index != self.frame_index:
+            raise ValueError("out-of-order frame")
+        offset += FRAME_DESC_SIZE
+        t0 = time.perf_counter()
+        native.decode_slice(chunk, offset * 8, self._bt, self._coef_y,
+                            self._coef_u, self._coef_v)
+        t_ent = time.perf_counter()
+
+        bt_type = self._bt.block_type
+        im_mask = ((bt_type & INTRA_BIT).astype(bool)
+                   & (bt_type & MOTION_BIT).astype(bool))
+        inter_motion = (bt_type & MOTION_BIT).astype(bool) & ~im_mask
+        # fast-mode streams keep |mv| <= 16; intra-motion blocks and wider
+        # vectors (reference-encoder streams) need the sequential decoder
+        fast_mv = bool(np.all(
+            (np.abs(self._bt.motion_x[inter_motion]) <= 16)
+            & (np.abs(self._bt.motion_y[inter_motion]) <= 16)))
+        self.frame_index += 1
+        if self._native is not None or bool(np.any(im_mask)) or not fast_mv:
+            self.host_frames += 1
+            return dict(kind="host", rgb=self._decode_sequential(index))
+
+        pos, val, count = native.extract_coo(
+            self._bt.block_type, self._aw // MB, self._coef_y, self._coef_u,
+            self._coef_v, wire_mod.COO_K)
+        if count <= wire_mod.COO_K:
+            # upload bucket: typical inter frames fit the small one
+            small = min(wire_mod.COO_SMALL, wire_mod.COO_K)
+            coo_k = small if count <= small else wire_mod.COO_K
+            in_wire = np.concatenate([
+                np.array([index, 0], np.int32).view(np.uint8),
+                pos[:coo_k].view(np.uint8), val[:coo_k].view(np.uint8),
+                wire_mod.pack_table_np(self._bt)])
+            self._state, yuv = engine.decode_step_coo(
+                _upload(in_wire, self.device), self._state,
+                aligned_w=self._aw, aligned_h=self._ah,
+                frame_w=self.width, frame_h=self.height,
+                deblock=self.config.enable_deblocking, coo_k=coo_k,
+                out_fmt=self._out_fmt)
+            return dict(kind="wire", yuv=yuv, index=index, t0=t0,
+                        t_ent=t_ent, t_dispatch=time.perf_counter())
+        # dense fallback (residual volume beyond the COO capacity)
+        table = {k: _upload(getattr(self._bt, k), self.device)
+                 for k in _BT_FIELDS if k != "variance"}
+        coef = {k: _upload(getattr(self, "_" + k), self.device)
+                for k in ("coef_y", "coef_u", "coef_v")}
+        self._state, rgb = engine.decode_step(
+            table, coef, self._state, index, width=self.width,
+            height=self.height, aligned_w=self._aw, aligned_h=self._ah,
+            deblock=self.config.enable_deblocking)
+        return dict(kind="dense", rgb=rgb)
+
+    def _finish_decode(self, pending) -> np.ndarray:
+        kind = pending["kind"]
+        stats = dict(path="host" if kind == "host" else "device",
+                     host_frames=self.host_frames)
+        if kind == "host":
+            rgb = pending["rgb"]
+        elif kind == "dense":
+            rgb = pending["rgb"].cpu().numpy()
+        else:
+            rgb, stats["stage_ms"] = self._wire_to_rgb(pending)
+        self.last_stats = stats
+        return rgb
+
+    def _wire_to_rgb(self, pending):
+        """Fetches the YUV wire and converts it on the host; returns (rgb,
+        stage ms). An overflowed exception list means the wire was lossy:
+        the exact reconstruction is fetched from the ring instead."""
+        buf = pending["yuv"].cpu().numpy()
+        t_fetch = time.perf_counter()
+        if self._out_fmt == "yuv5d":
+            rgb, exc_count = native.yuv5d_wire_to_rgb(
+                buf, self._aw, self._ah, self.width, self.height,
+                wire_mod.DEXC_K, self._yuv_tmp)
+            exc_cap = wire_mod.DEXC_K
+        else:
+            rgb, exc_count = native.yuv_wire_to_rgb(
+                buf, self._aw, self._ah, self.width, self.height,
+                wire_mod.EXC_K)
+            exc_cap = wire_mod.EXC_K
+        if exc_count > exc_cap:
+            slot = pending["index"] % RING
+            y, u, v = (self._state[k][slot].cpu().numpy()
+                       for k in ("ring_y", "ring_u", "ring_v"))
+            rgb = cpu_imaging.yuv420_to_rgb(y, u, v, self.width, self.height)
+        stage_ms = dict(
+            entropy=(pending["t_ent"] - pending["t0"]) * 1e3,
+            dispatch=(pending["t_dispatch"] - pending["t_ent"]) * 1e3,
+            device_and_fetch=(t_fetch - pending["t_dispatch"]) * 1e3,
+            convert=(time.perf_counter() - t_fetch) * 1e3)
+        return rgb, stage_ms
+
+    def decode(self, chunk: bytes) -> np.ndarray:
+        """Decodes one chunk; returns the (H, W, 3) uint8 frame."""
+        return self._finish_decode(self._dispatch_decode(chunk))
+
+    def decode_many(self, chunks):
+        """Yields one RGB frame per chunk."""
+        for chunk in chunks:
+            yield self.decode(chunk)
+
+    # -- checkpoint / resume (checkpoint.py format, TpuDecoder-compatible) --
+
+    def state_dict(self):
+        meta = dict(kind="gpu_decoder", width=self.width, height=self.height,
+                    frame_index=self.frame_index,
+                    init=self._state is not None)
+        arrays = {}
+        if self._state is not None:
+            arrays = _state_to_numpy(self._state)
+            if self._native is not None:
+                # host-side state is authoritative in sequential mode
+                rings = [self._native.get_ring(s) for s in range(RING)]
+                for i, k in enumerate(("ring_y", "ring_u", "ring_v")):
+                    arrays[k] = np.stack([r[i] for r in rings])
+                arrays["coef_y"] = self._coef_y.copy()
+                arrays["coef_u"] = self._coef_u.copy()
+                arrays["coef_v"] = self._coef_v.copy()
+            arrays.update(
+                host_coef_y=self._coef_y, host_coef_u=self._coef_u,
+                host_coef_v=self._coef_v,
+                **{f"bt_{k}": getattr(self._bt, k) for k in _BT_FIELDS})
+        return meta, arrays
+
+    def load_state_dict(self, meta, arrays):
+        """Resumes from a GpuDecoder or a TpuDecoder checkpoint."""
+        self.frame_index = meta["frame_index"]
+        self._native = None  # resume on the device path until needed again
+        if meta["init"]:
+            self._init(meta["width"], meta["height"])
+            self._state = state_from_numpy(arrays, self.device)
+            self._coef_y[:] = arrays["host_coef_y"]
+            self._coef_u[:] = arrays["host_coef_u"]
+            self._coef_v[:] = arrays["host_coef_v"]
+            for k in _BT_FIELDS:
+                getattr(self._bt, k)[:] = arrays[f"bt_{k}"]
+
+    def _decode_sequential(self, index: int) -> np.ndarray:
+        """Native C++ decoder for frames the parallel path cannot batch
+        (intra-motion blocks read the current frame's partially decoded
+        pixels in raster order). On first use the ring moves to the host
+        and the decoder stays sequential from then on."""
+        if self._native is None:
+            if not self.config.is_conformance:
+                raise NotImplementedError(
+                    "sequential decode (intra-motion streams) supports the "
+                    "conformance config only")
+            self._native = native.NativeDecoder(self._aw, self._ah)
+            rings = [self._state[k].cpu().numpy()
+                     for k in ("ring_y", "ring_u", "ring_v")]
+            for s in range(RING):
+                self._native.set_ring(s, rings[0][s], rings[1][s],
+                                      rings[2][s])
+        return self._native.decode_frame(
+            self._bt, self._coef_y, self._coef_u, self._coef_v, index,
+            self.width, self.height)

@@ -1,0 +1,179 @@
+"""Dense fast-mode motion search kernels K1 and K2 (counterpart of
+cairo_tpu/tpu/pallas_motion.py), with their plain PyTorch versions.
+
+Dispatch, one rule per wrapper: a CPU tensor takes the plain version; a
+CUDA tensor launches the kernel of csrc/motion.cu or raises. Each launch
+adds one to LAUNCHES[name].
+
+  * chroma_max_maps (K1) replaces pallas_motion.chroma_max_maps
+    (pallas_motion.py:314); plain version translated from
+    motion._chroma_max_maps (motion.py:237).
+  * dense_select (K2) replaces pallas_motion.dense_select
+    (pallas_motion.py:212); plain version translated from
+    motion._dense_select (motion.py:269).
+
+The port's chroma-map layout is (hb, wb, 17*17), offset index
+(cdy+8)*17 + (cdx+8): only K2 reads it. References are plain ring planes
+of the source's shape; reads beyond them are zero.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import tables
+from . import _build
+
+MB = tables.MACROBLOCK_SIZE
+R = tables.MOTION_SEARCH_RADIUS     # 16
+SPAN = 2 * R + 1                    # 33
+NOFF = SPAN * SPAN                  # 1089
+CENTER = R * SPAN + R
+CR = R // 2                         # 8
+CSPAN = 2 * CR + 1                  # 17
+CNOFF = CSPAN * CSPAN               # 289
+I32 = torch.int32
+INT32_MAX = 0x7FFFFFFF
+_NONE = torch.iinfo(torch.int64).max
+
+LAUNCHES = {"chroma_max_maps": 0, "dense_select": 0}
+
+
+def _shifted(slab, n, width):
+    """(n, H, width) stack of slab[:, d:d+width] for d in range(n)."""
+    return torch.stack([slab[:, d:d + width] for d in range(n)])
+
+
+# ----------------------------------------------------------------- K1
+
+def chroma_max_maps_plain(src_u, src_v, ref_u, ref_v):
+    h, w = src_u.shape
+    hb, wb = h // 8, w // 8
+    pu = F.pad(ref_u.to(torch.int16).to(I32), (CR, CR, CR, CR))
+    pv = F.pad(ref_v.to(torch.int16).to(I32), (CR, CR, CR, CR))
+    su, sv = src_u.to(I32), src_v.to(I32)
+    rows = []
+    for dy in range(CSPAN):
+        du = (su - _shifted(pu[dy:dy + h], CSPAN, w)).abs()
+        dv = (sv - _shifted(pv[dy:dy + h], CSPAN, w)).abs()
+        d = torch.maximum(du, dv).reshape(CSPAN, hb, 8, wb, 8)
+        rows.append(d.amax(dim=(2, 4)))
+    maps = torch.stack(rows)                       # (cdy, cdx, hb, wb)
+    return maps.permute(2, 3, 0, 1).reshape(hb, wb, CNOFF).contiguous()
+
+
+def chroma_max_maps(src_u, src_v, ref_u, ref_v):
+    """(hb, wb, 289) int32 chroma abs-max maps over offsets [-8, 8]^2.
+    src_*: (H, W) int32 chroma planes; ref_*: (H, W) int16."""
+    if src_u.device.type == "cpu":
+        return chroma_max_maps_plain(src_u, src_v, ref_u, ref_v)
+    h, w = src_u.shape
+    if h % 8 or w % 8:
+        raise ValueError("chroma_max_maps: plane dims must be multiples of 8")
+    for t, name in ((src_u, "src_u"), (src_v, "src_v")):
+        _build.check(t, name, I32, (h, w))
+    for t, name in ((ref_u, "ref_u"), (ref_v, "ref_v")):
+        _build.check(t, name, torch.int16, (h, w))
+    out = torch.empty((h // 8, w // 8, CNOFF), dtype=I32,
+                      device=src_u.device)
+    fn = _build.kernel_fn("cairo_chroma_max_maps", "ppppiipp")
+    _build.launch(fn, src_u.device, src_u.data_ptr(), src_v.data_ptr(),
+                  ref_u.data_ptr(), ref_v.data_ptr(), h, w, out.data_ptr())
+    LAUNCHES["chroma_max_maps"] += 1
+    return out
+
+
+# ----------------------------------------------------------------- K2
+
+def dense_select_plain(src_y, ref_y, cmax, x0, width, height, mad_thr):
+    h, w = src_y.shape
+    hb, wb = h // MB, w // MB
+    dev = src_y.device
+    padded = F.pad(ref_y.to(torch.int16).to(I32), (R, R, R, R))
+    src = src_y.to(I32)
+    thr = torch.as_tensor(mad_thr, dtype=I32, device=dev)
+    px = torch.arange(wb, device=dev) * MB
+    py = torch.arange(hb, device=dev) * MB
+    offs = torch.arange(SPAN, device=dev)
+    ox = offs - R
+    cm = cmax.reshape(hb, wb, CSPAN, CSPAN)
+    best_p = torch.full((hb, wb), _NONE, dtype=torch.int64, device=dev)
+    best_c = best_p.clone()
+    sads, mads = [], []
+    # x validity per (dx, mb col) and y validity per mb row
+    gx = x0 + px[None, :] + ox[:, None]
+    x_ok = ((gx >= 0) & (gx <= width - MB))[:, None, :]
+    for dy in range(SPAN):
+        oy = dy - R
+        d = (src - _shifted(padded[dy:dy + h], SPAN, w)).abs() \
+            .reshape(SPAN, hb, MB, wb, MB)
+        sad = d.sum(dim=(2, 4), dtype=I32)
+        cm_row = cm[:, :, (oy >> 1) + CR, (ox >> 1) + CR].permute(2, 0, 1)
+        mad = torch.maximum(d.amax(dim=(2, 4)), cm_row)
+        gy = py + oy
+        valid = x_ok & ((gy >= 0) & (gy <= height - MB))[None, :, None]
+        tail = ((ox * ox + oy * oy) << 11 | (dy * SPAN + offs)) \
+            .to(torch.int64)[:, None, None]
+        kp = torch.where(valid, sad.to(torch.int64) << 21 | tail, _NONE)
+        kc = torch.where(valid & (mad < thr), mad.to(torch.int64) << 21 | tail,
+                         _NONE)
+        best_p = torch.minimum(best_p, kp.amin(0))
+        best_c = torch.minimum(best_c, kc.amin(0))
+        sads.append(sad)
+        mads.append(mad)
+    sad_all = torch.cat(sads).reshape(NOFF, -1)
+    mad_all = torch.cat(mads).reshape(NOFF, -1)
+    best_p, best_c = best_p.reshape(-1), best_c.reshape(-1)
+
+    def pick(key):
+        has = key != _NONE
+        off = torch.where(has, key & 2047, 0)
+        sel = off[None, :]
+        return (has, (off % SPAN - R).to(I32), (off // SPAN - R).to(I32),
+                sad_all.gather(0, sel)[0], mad_all.gather(0, sel)[0])
+
+    p_has, p_ox, p_oy, p_sad, p_mad = pick(best_p)
+    p_sad = torch.where(p_has, p_sad, INT32_MAX)
+    p_mad = torch.where(p_has, p_mad, INT32_MAX)
+    c_has, c_ox, c_oy, c_sad, c_mad = pick(best_c)
+    co_sad, co_mad = sad_all[CENTER], mad_all[CENTER]
+    frozen = co_mad < thr
+    use_copy = c_has & ~frozen
+    mx = torch.where(frozen, 0, torch.where(use_copy, c_ox, p_ox))
+    my = torch.where(frozen, 0, torch.where(use_copy, c_oy, p_oy))
+    sad = torch.where(frozen, co_sad, torch.where(use_copy, c_sad, p_sad))
+    mad = torch.where(frozen, co_mad, torch.where(use_copy, c_mad, p_mad))
+    return mx, my, sad, mad, frozen
+
+
+def dense_select(src_y, ref_y, cmax, x0, width, height, mad_thr):
+    """Per-MB (mx, my, sad, mad, frozen) under the fast-mode policy.
+    src_y: (H, W) int32; ref_y: (H, W) int16; cmax from
+    chroma_max_maps; x0: the tile's pixel origin; width/height: the frame
+    the candidates must stay in; mad_thr: int32 scalar tensor."""
+    if src_y.device.type == "cpu":
+        return dense_select_plain(src_y, ref_y, cmax, x0, width, height,
+                                  mad_thr)
+    h, w = src_y.shape
+    if h % MB or w % MB:
+        raise ValueError("dense_select: plane dims must be multiples of 16")
+    hb, wb = h // MB, w // MB
+    dev = src_y.device
+    thr = torch.as_tensor(mad_thr, dtype=I32, device=dev).reshape(1)
+    _build.check(src_y, "src_y", I32, (h, w))
+    _build.check(ref_y, "ref_y", torch.int16, (h, w))
+    _build.check(cmax, "cmax", I32, (hb, wb, CNOFF))
+    _build.check(thr, "mad_thr", I32, (1,))
+    n = hb * wb
+    mx, my, sad, mad = (torch.empty(n, dtype=I32, device=dev)
+                        for _ in range(4))
+    frozen = torch.empty(n, dtype=torch.bool, device=dev)
+    fn = _build.kernel_fn("cairo_dense_select", "ppppiiiiipppppp")
+    _build.launch(fn, dev, src_y.data_ptr(), ref_y.data_ptr(),
+                  cmax.data_ptr(), thr.data_ptr(), h, w, int(x0),
+                  int(width), int(height), mx.data_ptr(),
+                  my.data_ptr(), sad.data_ptr(), mad.data_ptr(),
+                  frozen.data_ptr())
+    LAUNCHES["dense_select"] += 1
+    return mx, my, sad, mad, frozen

@@ -1,0 +1,320 @@
+"""Per-frame fast-mode encode and decode steps on torch tensors
+(counterpart of cairo_tpu/tpu/engine.py).
+
+Encode dataflow: source wire -> per-MB inter searches against the 3
+previous ring slots (motion.inter_search) -> classification merge ->
+prediction planes (K4) -> residual DCT -> adaptive QP -> quantize ->
+reconstruction into the ring slot -> band-scan deblock -> packed output
+wire (block table + residual COO). The host's C++ entropy coder
+serializes the slice.
+
+The carried state is the recon ring and the persistent coefficient
+planes, as on the JAX package's Pallas path (no window caches). Copy
+blocks keep their stale coefficient contents (FORMAT.md §4). The state
+dict is updated in place and also returned. The frame index and quality
+travel in the wire's 8-byte header and stay on the device: nothing here
+waits for the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import tables
+from ..blocktypes import COPY_BIT, INTRA_BIT, MOTION_BIT
+from . import cuda_pred, ops
+from . import deblock as deblock_mod
+from . import motion as motion_mod
+from . import wire as wire_mod
+
+MB = tables.MACROBLOCK_SIZE
+RING = tables.REFERENCE_FRAME_COUNT
+I32 = torch.int32
+
+
+def init_state(aligned_w: int, aligned_h: int, device="cuda"):
+    """Ring + persistent coefficient planes, int16, zeroed."""
+    shape_y = (aligned_h, aligned_w)
+    shape_c = (aligned_h // 2, aligned_w // 2)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int16, device=device)
+
+    return dict(ring_y=z(RING, *shape_y), ring_u=z(RING, *shape_c),
+                ring_v=z(RING, *shape_c), coef_y=z(*shape_y),
+                coef_u=z(*shape_c), coef_v=z(*shape_c))
+
+
+def _mb_coords(aligned_w, aligned_h, device):
+    wb, hb = aligned_w // MB, aligned_h // MB
+    idx = torch.arange(wb * hb, dtype=I32, device=device)
+    return (idx % wb) * MB, (idx // wb) * MB, wb, hb
+
+
+def _header(wire):
+    """The wire's leading [frame_index, quality] int32 pair, on device."""
+    hdr = wire[:8].view(I32)
+    return hdr[0], hdr[1]
+
+
+def _gather_pred(state, frame_index, target, mx, my, sp_pred, sp_amount,
+                 sp_index, zero):
+    """Prediction blocks for all MBs (zeroed where `zero`, i.e. intra)."""
+    slot_per_mb = (frame_index + RING - target) % RING
+    py, pu, pv = cuda_pred.pred_planes(
+        state["ring_y"], state["ring_u"], state["ring_v"], slot_per_mb,
+        mx, my, sp_pred, sp_amount, sp_index, zero)
+    return (ops.plane_to_blocks(py, MB), ops.plane_to_blocks(pu, MB // 2),
+            ops.plane_to_blocks(pv, MB // 2))
+
+
+def _intra_best(n, device):
+    zi = torch.zeros(n, dtype=I32, device=device)
+    zb = torch.zeros(n, dtype=torch.bool, device=device)
+    return dict(sad=zi, is_copy=zb, is_motion=zb,
+                is_intra=torch.ones(n, dtype=torch.bool, device=device),
+                target=zi, motion_x=zi, motion_y=zi, sp_pred=zb,
+                sp_amount=zb, sp_index=zi)
+
+
+def _classify_inter(src, src_planes, ring, px, py, quality, frame_index,
+                    n_refs=RING):
+    """Inter-frame classification (encode.cpp:17-67, fast mode): one
+    search per reference offset, merged copy-first then by lower SAD."""
+    best = _intra_best(px.shape[0], px.device)
+    best["sad"] = src[0].abs().sum(dim=(1, 2), dtype=I32)
+    for offset in range(1, n_refs):
+        slot = ((frame_index + RING - offset) % RING).reshape(1)
+        ref = tuple(p.index_select(0, slot)[0] for p in ring)
+        cand = motion_mod.inter_search(src, src_planes, ref, ring, slot,
+                                       px, py, quality)
+        take = torch.where(cand["is_copy"] != best["is_copy"],
+                           cand["is_copy"], cand["sad"] < best["sad"])
+        for k in ("sad", "is_copy", "is_motion", "motion_x", "motion_y",
+                  "sp_pred", "sp_amount", "sp_index"):
+            best[k] = torch.where(take, cand[k], best[k])
+        best["is_intra"] = best["is_intra"] & ~take
+        best["target"] = torch.where(take, offset, best["target"])
+    return best
+
+
+def _quantize_planes(ty, tu, tv, qp, intra_qm):
+    """Quantizes every MB's 4 luma quads and 2 chroma blocks; intra_qm
+    picks the intra matrices per MB."""
+    qp4 = qp.repeat_interleave(4)
+    qm4 = intra_qm.repeat_interleave(4)[:, None, None]
+    qm1 = intra_qm[:, None, None]
+    quads = ops.mb_quads(ty).reshape(-1, 8, 8)
+    qy = torch.where(qm4, ops.quantize_8x8(quads, qp4, True, True),
+                     ops.quantize_8x8(quads, qp4, False, True))
+    qu = torch.where(qm1, ops.quantize_8x8(tu, qp, True, False),
+                     ops.quantize_8x8(tu, qp, False, False))
+    qv = torch.where(qm1, ops.quantize_8x8(tv, qp, True, False),
+                     ops.quantize_8x8(tv, qp, False, False))
+    return qy, qu, qv
+
+
+def _reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb):
+    """Dequantize + inverse DCT + prediction (decode.cpp:15-144) -> recon
+    blocks; copy MBs take the prediction as it is."""
+    qp4 = qp.repeat_interleave(4)
+    qm4 = intra_qm.repeat_interleave(4)[:, None, None]
+    qm1 = intra_qm[:, None, None]
+    dq_y = torch.where(qm4, ops.dequantize_8x8(qy, qp4, True, True),
+                       ops.dequantize_8x8(qy, qp4, False, True))
+    dq_u = torch.where(qm1, ops.dequantize_8x8(qu, qp, True, False),
+                       ops.dequantize_8x8(qu, qp, False, False))
+    dq_v = torch.where(qm1, ops.dequantize_8x8(qv, qp, True, False),
+                       ops.dequantize_8x8(qv, qp, False, False))
+    res = (ops.quads_to_mb(ops.idct8(dq_y.reshape(-1, 4, 8, 8))),
+           ops.idct8(dq_u), ops.idct8(dq_v))
+    copy3 = copy_mb[:, None, None]
+    return tuple(torch.where(copy3, p, ops.wrap16(r + p))
+                 for r, p in zip(res, pred))
+
+
+def _finish_frame(state, rec, frame_index, copy_mb, qp, aligned_w,
+                  aligned_h, deblock):
+    """Recon blocks -> planes -> deblock -> ring slot frame_index % RING."""
+    hb, wb = aligned_h // MB, aligned_w // MB
+    rec_y = ops.blocks_to_plane(rec[0], aligned_h, aligned_w)
+    rec_u = ops.blocks_to_plane(rec[1], aligned_h // 2, aligned_w // 2)
+    rec_v = ops.blocks_to_plane(rec[2], aligned_h // 2, aligned_w // 2)
+    if deblock:
+        copy_map = copy_mb.reshape(hb, wb)
+        q_map = torch.where(copy_map, 0, qp.reshape(hb, wb))
+        rec_y, rec_u, rec_v = deblock_mod.deblock_frame(
+            rec_y, rec_u, rec_v, copy_map, q_map)
+    slot = (frame_index % RING).reshape(1).long()
+    for key, plane in (("ring_y", rec_y), ("ring_u", rec_u),
+                       ("ring_v", rec_v)):
+        state[key].index_copy_(0, slot, plane.to(torch.int16)[None])
+    return rec_y, rec_u, rec_v
+
+
+def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
+                is_inter, n_refs=RING, deblock=True, adaptive=True,
+                src_fmt="yuv8"):
+    """One frame through the pipeline. src_wire: uint8 tensor on the
+    state's device, the source wire (native.rgb_to_yuv8 / rgb_to_yuv5d)
+    prefixed with the 8-byte [frame_index, quality] int32 header.
+    Returns (state, outputs); the state is updated in place."""
+    dev = src_wire.device
+    px, py, wb, hb = _mb_coords(aligned_w, aligned_h, dev)
+    n = wb * hb
+    frame_index, quality = _header(src_wire)
+    unpack = (wire_mod.unpack_yuv5d if src_fmt == "yuv5d"
+              else wire_mod.unpack_yuv8)
+    y_in, u_in, v_in = unpack(src_wire[8:], aligned_h, aligned_w, frame_w,
+                              frame_h)
+    src = (ops.plane_to_blocks(y_in, MB), ops.plane_to_blocks(u_in, MB // 2),
+           ops.plane_to_blocks(v_in, MB // 2))
+    ring = (state["ring_y"], state["ring_u"], state["ring_v"])
+
+    if is_inter:
+        best = _classify_inter(src, (y_in, u_in, v_in), ring, px, py,
+                               quality, frame_index, n_refs)
+    else:
+        best = _intra_best(n, dev)
+    block_type = (best["is_intra"].to(I32) * INTRA_BIT
+                  | best["is_motion"].to(I32) * MOTION_BIT
+                  | best["is_copy"].to(I32) * COPY_BIT)
+
+    pred = _gather_pred(state, frame_index, best["target"], best["motion_x"],
+                        best["motion_y"], best["sp_pred"], best["sp_amount"],
+                        best["sp_index"], best["is_intra"])
+
+    # --- residual transform, adaptive QP, quantization
+    res = tuple(ops.wrap16(s - p) for s, p in zip(src, pred))
+    ty = ops.quads_to_mb(ops.fdct8(ops.mb_quads(res[0])))
+    tu, tv = ops.fdct8(res[1]), ops.fdct8(res[2])
+    variance = ops.block_variance2(ty)
+    qp = ops.adaptive_qp(quality, ty) if adaptive else \
+        torch.full((n,), 0, dtype=I32, device=dev) + quality
+    intra_qm = best["is_intra"] & ~best["is_motion"]  # INTRA_DEFAULT only
+    qy, qu, qv = _quantize_planes(ty, tu, tv, qp, intra_qm)
+
+    # --- coefficient planes (stale persistence for copy blocks)
+    copy_mb = best["is_copy"]
+    copy3 = copy_mb[:, None, None]
+    qy_mb = ops.quads_to_mb(qy.reshape(-1, 4, 8, 8))
+    for key, q, size, h, w in (
+            ("coef_y", qy_mb, MB, aligned_h, aligned_w),
+            ("coef_u", qu, MB // 2, aligned_h // 2, aligned_w // 2),
+            ("coef_v", qv, MB // 2, aligned_h // 2, aligned_w // 2)):
+        stale = ops.plane_to_blocks(state[key], size).to(I32)
+        state[key] = ops.blocks_to_plane(torch.where(copy3, stale, q), h, w) \
+            .to(torch.int16)
+
+    # --- reconstruction, deblock, ring update
+    rec = _reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb)
+    _finish_frame(state, rec, frame_index, copy_mb, qp, aligned_w,
+                  aligned_h, deblock)
+
+    outputs = dict(
+        block_type=block_type.to(torch.uint8),
+        prediction_target=best["target"].to(torch.uint8),
+        motion_x=best["motion_x"].to(torch.int16),
+        motion_y=best["motion_y"].to(torch.int16),
+        sp_pred=best["sp_pred"], sp_amount=best["sp_amount"],
+        sp_index=best["sp_index"].to(torch.uint8),
+        q_index=torch.where(copy_mb, 0, qp).to(torch.uint8),
+        variance=ops.wrap16(variance).to(torch.int16),
+        coef_y=state["coef_y"], coef_u=state["coef_u"],
+        coef_v=state["coef_v"])
+    outputs["wire"], outputs["wire_tail"] = wire_mod.pack_encode_wire(
+        outputs, state["coef_y"], state["coef_u"], state["coef_v"], copy_mb)
+    return state, outputs
+
+
+def _decode_common(table, coef_y, coef_u, coef_v, state, frame_index,
+                   aligned_w, aligned_h, deblock=True):
+    """Shared reconstruction body (decode.cpp:15-144, fast-mode streams).
+    coef planes int32-valued; returns (rec_y, rec_u, rec_v) and updates
+    the state in place."""
+    block_type = table["block_type"].to(I32)
+    is_intra = (block_type & INTRA_BIT) != 0
+    is_motion = (block_type & MOTION_BIT) != 0
+    is_copy = (block_type & COPY_BIT) != 0
+
+    # stale-field gating (FORMAT.md §4)
+    target = torch.where(is_intra, 0, table["prediction_target"].to(I32))
+    mx = torch.where(is_motion, table["motion_x"].to(I32), 0)
+    my = torch.where(is_motion, table["motion_y"].to(I32), 0)
+    sp_pred = is_motion & table["sp_pred"]
+    qp = table["q_index"].to(I32)
+    intra_default = is_intra & ~is_motion
+    pred = _gather_pred(state, frame_index, target, mx, my, sp_pred,
+                        table["sp_amount"], table["sp_index"].to(I32),
+                        intra_default)
+
+    cy = ops.plane_to_blocks(coef_y, MB)
+    qy = ops.mb_quads(cy).reshape(-1, 8, 8)
+    rec = _reconstruct(qy, ops.plane_to_blocks(coef_u, MB // 2),
+                       ops.plane_to_blocks(coef_v, MB // 2), qp,
+                       intra_default, pred, is_copy)
+    out = _finish_frame(state, rec, frame_index, is_copy, qp, aligned_w,
+                        aligned_h, deblock)
+    state["coef_y"] = coef_y.to(torch.int16)
+    state["coef_u"] = coef_u.to(torch.int16)
+    state["coef_v"] = coef_v.to(torch.int16)
+    return out
+
+
+def decode_step(table, coef, state, frame_index, *, width, height,
+                aligned_w, aligned_h, deblock=True):
+    """Reconstruction of one parsed frame from dense coefficient planes,
+    returning RGB (no intra-motion blocks: the host checks that before
+    dispatch). table/coef: dicts of tensors on the state's device."""
+    rec_y, rec_u, rec_v = _decode_common(
+        table, coef["coef_y"].to(I32), coef["coef_u"].to(I32),
+        coef["coef_v"].to(I32), state,
+        torch.tensor(frame_index, dtype=I32, device=state["ring_y"].device),
+        aligned_w, aligned_h, deblock)
+    rgb = ops.yuv420_to_rgb(rec_y[:height, :width],
+                            rec_u[:(height + 1) // 2, :(width + 1) // 2],
+                            rec_v[:(height + 1) // 2, :(width + 1) // 2])
+    return state, rgb
+
+
+def decode_step_coo(in_wire, state, *, aligned_w, aligned_h, frame_w=None,
+                    frame_h=None, deblock=True, coo_k=None, out_fmt="yuv8"):
+    """Transfer-optimized decode: one packed upload (8-byte header with the
+    frame index + residual COO + block table), YUV wire out. Copy blocks
+    keep their stale coefficients; non-copy blocks are rebuilt from the
+    COO list. COO positions past the planes (the bucket's unused tail)
+    are dropped, not clamped."""
+    n = (aligned_w // MB) * (aligned_h // MB)
+    k = coo_k if coo_k is not None else wire_mod.COO_K
+    frame_index = in_wire[:8].view(I32)[0]
+    body = in_wire[8:]
+    coo_pos = wire_mod._view(body[:4 * k], I32).long()
+    coo_val = wire_mod._view(body[4 * k:6 * k], torch.int16).to(I32)
+    table = wire_mod.unpack_table_wire(body[6 * k:], n)
+    is_copy = (table["block_type"].to(I32) & COPY_BIT) != 0
+
+    ys = aligned_h * aligned_w
+    cs = (aligned_h // 2) * (aligned_w // 2)
+    coo_pos, keep = wire_mod.drop_out_of_range(coo_pos, ys + 2 * cs)
+    flat = torch.zeros(ys + 2 * cs, dtype=I32, device=in_wire.device)
+    flat.index_add_(0, coo_pos[keep], coo_val[keep])
+    wb, hb = aligned_w // MB, aligned_h // MB
+    ymask = is_copy.reshape(hb, wb).repeat_interleave(MB, 0) \
+        .repeat_interleave(MB, 1)
+    cmask = ymask[::2, ::2]
+    coef_y = torch.where(ymask, state["coef_y"].to(I32),
+                         flat[:ys].reshape(aligned_h, aligned_w))
+    coef_u = torch.where(cmask, state["coef_u"].to(I32),
+                         flat[ys:ys + cs].reshape(aligned_h // 2,
+                                                  aligned_w // 2))
+    coef_v = torch.where(cmask, state["coef_v"].to(I32),
+                         flat[ys + cs:].reshape(aligned_h // 2,
+                                                aligned_w // 2))
+    rec_y, rec_u, rec_v = _decode_common(
+        table, coef_y, coef_u, coef_v, state, frame_index, aligned_w,
+        aligned_h, deblock)
+    pack = (wire_mod.pack_yuv5d_wire if out_fmt == "yuv5d"
+            else wire_mod.pack_yuv_wire)
+    return state, pack(rec_y, rec_u, rec_v,
+                       frame_w if frame_w is not None else aligned_w,
+                       frame_h if frame_h is not None else aligned_h)

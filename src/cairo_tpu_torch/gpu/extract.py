@@ -1,0 +1,40 @@
+"""Per-macroblock window extraction (counterpart of
+cairo_tpu/tpu/extract.py), used by the plain versions of the prediction
+kernels (cuda_pred).
+
+The JAX package selects blocks from windows with one-hot matmuls because
+TPU gathers are slow; here `extract_blocks` is a plain integer gather
+with the same offset clamping, exact on every device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def mb_windows(plane, mb_size: int, pad: int):
+    """(H, W) plane -> (hb*wb, S, S) windows, S = mb_size+2*pad.
+
+    Window n covers plane rows [py-pad, py+mb_size+pad) and columns
+    [px-pad, px+mb_size+pad) for the MB at (px, py); out-of-frame area is
+    zero."""
+    height, width = plane.shape
+    size = mb_size + 2 * pad
+    padded = F.pad(plane, (pad, pad, pad, pad))
+    wins = padded.unfold(0, size, mb_size).unfold(1, size, mb_size)
+    hb, wb = height // mb_size, width // mb_size
+    return wins[:hb, :wb].reshape(hb * wb, size, size)
+
+
+def extract_blocks(windows, ox, oy, block: int):
+    """(N, block, block) blocks at per-window offsets (ox, oy), each
+    clamped to the window (0 = top-left)."""
+    n, size, _ = windows.shape
+    ox = torch.clamp(ox.long(), 0, size - block)
+    oy = torch.clamp(oy.long(), 0, size - block)
+    iota = torch.arange(block, device=windows.device)
+    rows = (oy[:, None] + iota)[:, :, None]
+    cols = (ox[:, None] + iota)[:, None, :]
+    return windows[torch.arange(n, device=windows.device)[:, None, None],
+                   rows, cols]
