@@ -20,16 +20,31 @@ Phases, one line each with the elapsed seconds:
      frame may take the host decode path, and every kernel must have been
      launched;
   4. CPU against card: 3 frames at 176x144 encoded with device="cpu" and
-     on the card give byte-identical chunks.
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is the contract line
+     on the card give byte-identical chunks;
+  2b. the conformance path's kernels against their plain versions at its
+     1080p shapes, exact: K4 at the wide pads 33/17 (|mv| up to 31 and
+     clamped beyond, sub-pel), K5 on three references with shifted
+     content, on flat planes that force ties (at SAD 0 and at the SAD
+     threshold the reference's C-precedence quirk tests) and with overshoot
+     beyond 0..255, and K6 on one intra and one inter wave pass fed the
+     same K5 output; and what K6's 321 launches cost with an empty kernel;
+  5. conformance path: ConformanceGpuEncoder over 1 intra + 2 inter
+     synthetic 1920x1080 frames at q16; each chunk decoded by GpuDecoder
+     (the native sequential C++ decoder takes these intra-motion frames)
+     must equal the encoder's reconstruction, and K4 at 33/17, K5 and K6
+     must each have been launched;
+  6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
+     give byte-identical chunks with device="cpu" and on the card.
+The line before the last is a JSON object with each kernel's launches (K4
+once per pad set), error and times; the last line is the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 
     python3 chip_smoke.py --profile
 
-runs phases 0-1 and then a torch.profiler trace of one 1080p inter frame
-through GpuEncoder and GpuDecoder, with one labelled range per pipeline
-stage: host and device milliseconds per stage, K1-K4's device time by
+runs phases 0-1 and then torch.profiler traces of one 1080p inter frame
+through GpuEncoder and GpuDecoder and of one through
+ConformanceGpuEncoder, with one labelled range per pipeline stage: host
+and device milliseconds per stage, the port's kernels' device time by
 kernel name, and all kernels' device time against the unprofiled wall
 time of the same work (busy share).
 """
@@ -242,6 +257,222 @@ def phase_kernels(torch, np, gpu):
     return recs
 
 
+def phase_kernels_conformance(torch, np, gpu, H=1088, W=1920):
+    """K4 at pads 33/17, K5 and K6 against their plain versions at the
+    conformance path's shapes; returns per-kernel records."""
+    cp, ci, cw = gpu["cuda_pred"], gpu["cuda_inter"], gpu["cuda_wave"]
+    ops = gpu["ops"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    hb, wb = H // 16, W // 16
+    n = hb * wb
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def blocks(y, u, v):
+        return (ops.plane_to_blocks(y, 16).contiguous(),
+                ops.plane_to_blocks(u, 8).contiguous(),
+                ops.plane_to_blocks(v, 8).contiguous())
+
+    recs = {}
+
+    # ---- K4 at the wide pads: every slot, |mv| up to 31 (40 clamps),
+    # sub-pel both amounts, intra zeroing
+    ring = tuple(t(rng.integers(-300, 560, (4,) + s), torch.int16)
+                 for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2)))
+    mx = t(rng.integers(-31, 32, n), torch.int32)
+    my = t(rng.integers(-31, 32, n), torch.int32)
+    mx[:64] = 40
+    my[64:128] = -40
+    args = (*ring, t(rng.integers(0, 4, n), torch.int32), mx, my,
+            t(rng.random(n) < 0.5, torch.bool),
+            t(rng.random(n) < 0.5, torch.bool),
+            t(rng.integers(0, 8, n), torch.int32),
+            t(rng.random(n) < 0.2, torch.bool),
+            cp.WIDE_YPAD, cp.WIDE_CPAD)
+    got = cp.pred_planes(*args)
+    torch.cuda.synchronize()
+    k4_err = compare(torch, "K4 pred_planes (33/17)", got,
+                     cp.pred_planes_plain(*args))
+    log("K4 at 33/17: equal to the plain version")
+    predicted = int((~args[9]).sum()) * (16 * 16 + 2 * 8 * 8)
+    recs["K4w"] = dict(
+        ms=cuda_ms(torch, lambda: cp.pred_planes(*args), 10),
+        plain_ms=cuda_ms(torch, lambda: cp.pred_planes_plain(*args), 3),
+        bytes=predicted * 2 + 7 * n * 4 + H * W * 3 // 2 * 4,
+        ops=0, max_abs_err=k4_err)
+
+    # ---- K5: frame index 3, so offsets 1, 2, 3 read slots 2, 1, 0
+    hdr = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    src_p = (t(rng.integers(16, 236, (H, W)), torch.int32),
+             t(rng.integers(16, 240, (H // 2, W // 2)), torch.int32),
+             t(rng.integers(16, 240, (H // 2, W // 2)), torch.int32))
+    src = blocks(*src_p)
+
+    def shifted_ring(noise_hi):
+        planes = []
+        for i, p in enumerate(src_p):
+            slots = []
+            for dy, dx in ((3, -5), (-9, 14), (20, -26), (0, 0)):
+                if i:
+                    dy, dx = dy // 2, dx // 2
+                r = torch.roll(p, (dy, dx), (0, 1))
+                slots.insert(0, r + t(rng.integers(-noise_hi, noise_hi + 1,
+                                                   r.shape), torch.int32))
+            planes.append(torch.stack(slots).to(torch.int16).contiguous())
+        return tuple(planes)
+
+    def flat(level):
+        return tuple(torch.full((4,) + p.shape, level, dtype=torch.int16,
+                                device=dev) for p in src_p)
+
+    flat_src = blocks(*(torch.full_like(p, 128) for p in src_p))
+    overshoot = tuple(t(rng.integers(-300, 560, (4,) + p.shape),
+                        torch.int16) for p in src_p)
+    cases = (("shifted", src, shifted_ring(2)),
+             ("copy-grade shifts", src, shifted_ring(0)),
+             ("flat ties at SAD 0", flat_src, flat(128)),
+             ("flat ties at SAD 8192", flat_src, flat(96)),
+             ("overshoot", src, overshoot))
+    k5_err = 0
+    for label, s_blocks, r in cases:
+        got = ci.inter_search(s_blocks, r, hdr)
+        torch.cuda.synchronize()
+        want = ci.inter_search_plain(s_blocks, r, hdr)
+        k5_err = max(k5_err, compare(
+            torch, f"K5 inter_search ({label})",
+            tuple(got[k].to(torch.int32) for k in ci.FIELDS),
+            tuple(want[k].to(torch.int32) for k in ci.FIELDS)))
+    log("K5: equal to the plain version on " +
+        ", ".join(c[0] for c in cases))
+    ring5 = cases[0][2]
+    recs["K5"] = dict(
+        ms=cuda_ms(torch, lambda: ci.inter_search(src, ring5, hdr), 10),
+        plain_ms=cuda_ms(torch, lambda: ci.inter_search_plain(src, ring5,
+                                                              hdr), 3),
+        # source blocks, three reference slots, nine int32 fields out
+        bytes=n * 384 * 4 + 3 * H * W * 3 // 2 * 2 + 9 * n * 4,
+        # per MB and reference: the co-located candidate, 5 rings of 9
+        # and 16 sub-pel blends, 384 abs-diffs each
+        ops=n * 3 * 62 * 384, max_abs_err=k5_err)
+
+    # ---- K6: an intra and an inter pass over the current slot (slot 3)
+    self_sad = src[0].abs().sum(dim=(1, 2), dtype=torch.int32)
+    best = ci.inter_search(src, ring5, hdr)
+    state = dict(ring_y=ring5[0], ring_u=ring5[1], ring_v=ring5[2])
+    pred = gpu["wavefront"].wide_gather_pred(
+        state, hdr[0], best["target"], best["motion_x"], best["motion_y"],
+        best["sp_pred"], best["sp_amount"], best["sp_index"],
+        torch.zeros_like(best["is_intra"]))
+    cur = tuple(p[3] for p in ring5)
+    k6_err = 0
+    plain_s = {}
+    for label, inter in (("intra", None), ("inter", (best, pred))):
+        kw = dict(is_inter=inter is not None)
+        ib, ip = inter if inter else (None, None)
+        got = cw.wave_pass(src, self_sad, ib, ip, *cur, hdr[1], **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cw.wave_pass_plain(src, self_sad, ib, ip, *cur, hdr[1], **kw)
+        torch.cuda.synchronize()
+        plain_s[label] = time.perf_counter() - t0
+
+        def flat_out(o):
+            return (*o[:3], *(o[3][k] for k in cw.DESC_FIELDS), *o[4])
+
+        k6_err = max(k6_err, compare(torch, f"K6 wave_pass ({label})",
+                                     flat_out(got), flat_out(want)))
+    log(f"K6: equal to the plain version on an intra and an inter pass at "
+        f"{W}x{H} (plain {plain_s['intra']:.1f} s and "
+        f"{plain_s['inter']:.1f} s)")
+    ib, ip = best, pred
+    recs["K6"] = dict(
+        ms=cuda_ms(torch, lambda: cw.wave_pass(src, self_sad, ib, ip, *cur,
+                                               hdr[1], is_inter=True), 10),
+        plain_ms=cuda_ms(torch, lambda: cw.wave_pass_plain(
+            src, self_sad, ib, ip, *cur, hdr[1], is_inter=True), 3),
+        floor_ms=cuda_ms(torch, lambda: cw.launch_floor(H, W, dev), 10),
+        # source and prediction blocks, self-SAD, K5's nine fields, the
+        # current slot read (int16) and the reconstruction written
+        # (int32), eleven int32 fields and int16 coefficient blocks out
+        bytes=n * (384 * 4 * 2 + 4 + 9 * 4 + 11 * 4 + 384 * 2)
+        + H * W * 3 // 2 * (2 + 4),
+        # per MB: 61 intra candidates (5 rings of 9, 16 sub-pel) of 384
+        # abs-diffs, and four 8-term passes over 384 coefficients
+        ops=n * (61 * 384 + 4 * 384 * 8), max_abs_err=k6_err)
+    return recs
+
+
+def phase_conformance(torch, np, gpu):
+    """The conformance path at 1080p; returns (launch counts, summary)."""
+    from cairo_tpu_torch.cpuref import imaging
+    from cairo_tpu_torch.synth import synth_frames
+
+    api = gpu["api"]
+    frames = synth_frames(1920, 1080, 3, seed=SEED % 991)
+    counters = (gpu["cuda_pred"].LAUNCHES, gpu["cuda_inter"].LAUNCHES,
+                gpu["cuda_wave"].LAUNCHES, gpu["cuda_wave"].CALLS)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    enc = api.ConformanceGpuEncoder()
+    enc.set_quality(16)
+    chunks, recons, enc_s, stages = [], [], [], {}
+    for f in frames:
+        t0 = time.perf_counter()
+        chunks.append(enc.encode(f))
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+        for k, v in enc.last_stats["stage_ms"].items():
+            stages.setdefault(k, []).append(v)
+        meta, arrays = enc.state_dict()
+        slot = (meta["frame_index"] - 1) % 4
+        recons.append(imaging.yuv420_to_rgb(
+            arrays["ring_y"][slot], arrays["ring_u"][slot],
+            arrays["ring_v"][slot], meta["width"], meta["height"]))
+    launches = {"pred_planes_wide": counters[0]["pred_planes_wide"],
+                "inter_search": counters[1]["inter_search"],
+                "wave_pass": counters[2]["wave_pass"]}
+    calls = counters[3]["wave_pass"]
+    dec = api.GpuDecoder()
+    for i, (c, r) in enumerate(zip(chunks, recons)):
+        if not np.array_equal(dec.decode(c), r):
+            fail(f"conformance path: decoded frame {i} differs from the "
+                 f"encoder's reconstruction")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"conformance path: kernel {name} was never launched")
+    mse = float(np.mean([np.mean((r.astype(np.float64) - f) ** 2)
+                         for r, f in zip(recons, frames)]))
+    summary = dict(
+        frames=len(frames), host_frames=dec.host_frames,
+        wave_pass_calls=calls,
+        inter_encode_fps=(len(frames) - 1) / sum(enc_s[1:]),
+        encode_ms=[round(s * 1e3, 1) for s in enc_s],
+        psnr_db=10 * np.log10(255.0 ** 2 / max(1e-9, mse)),
+        kbits_per_frame=sum(len(c) for c in chunks) * 8 / len(chunks) / 1000,
+        stage_ms={k: [round(x, 1) for x in v] for k, v in stages.items()})
+    return launches, summary
+
+
+def phase_conformance_cpu_vs_card(gpu):
+    from cairo_tpu_torch.synth import synth_frames
+
+    api = gpu["api"]
+    for q in (4, 16, 29):
+        frames = synth_frames(176, 144, 3, seed=SEED % 997 + q)
+        cpu = api.ConformanceGpuEncoder(device="cpu")
+        card = api.ConformanceGpuEncoder()
+        for enc in (cpu, card):
+            enc.set_quality(q)
+        for i, f in enumerate(frames):
+            a, b = cpu.encode(f), card.encode(f)
+            if a != b:
+                fail(f"conformance: CPU and card chunks differ at q{q} frame "
+                     f"{i} ({len(a)} vs {len(b)} bytes)")
+
+
 def host_decode(np, native, stream, chunks):
     """Decodes a stream with the native sequential C++ decoder alone."""
     from cairo_tpu_torch.blocktypes import BlockTable
@@ -294,7 +525,9 @@ def phase_main(torch, np, gpu):
         dec_s.append(time.perf_counter() - t0)
         for k, v in dec.last_stats.get("stage_ms", {}).items():
             stages.setdefault(f"decode.{k}", []).append(v)
-    launches = {**gpu["cuda_motion"].LAUNCHES, **gpu["cuda_pred"].LAUNCHES}
+    launches = {**gpu["cuda_motion"].LAUNCHES,
+                **{k: gpu["cuda_pred"].LAUNCHES[k]
+                   for k in ("gather_windows", "pred_planes")}}
 
     for i, (o, r) in enumerate(zip(outs, recons)):
         if not np.array_equal(o, r):
@@ -347,51 +580,29 @@ PROFILE_STAGES = (
     ("wire", "pack_encode_wire"), ("wire", "pack_yuv5d_wire"),
     ("motion", "inter_search"), ("cuda_motion", "chroma_max_maps"),
     ("cuda_motion", "dense_select"), ("cuda_pred", "gather_windows"),
-    ("cuda_pred", "pred_planes"), ("engine", "_quantize_planes"),
-    ("engine", "_reconstruct"), ("deblock", "deblock_frame"),
-    ("ops", "fdct8"))
+    ("cuda_pred", "pred_planes"), ("engine", "quantize_planes"),
+    ("engine", "reconstruct"), ("deblock", "deblock_frame"),
+    ("ops", "fdct8"), ("cuda_inter", "inter_search"),
+    ("cuda_wave", "wave_pass"), ("wavefront", "_conformance_tail"))
 PORT_KERNELS = ("chroma_max_kernel", "dense_select_kernel",
-                "gather_windows_kernel", "pred_planes_kernel")
+                "gather_windows_kernel", "pred_planes_kernel",
+                "inter_search_kernel", "wave_kernel")
 
 
-def phase_profile(torch, gpu, smi):
-    """Host and device time per pipeline stage for one inter frame, and
-    the device's busy share against an unprofiled run of the same work."""
-    import importlib
+def profile_frame(torch, smi, label, warm, timed, traced):
+    """Prints host and device time per labelled stage of `traced()` and
+    the device's busy share against the unprofiled wall time of
+    `timed()`, after `warm()`; each runs the same kind of work."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from cairo_tpu_torch.synth import synth_frames
-
-    def labelled(name, fn):
-        def run(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return run
-
-    def frame(enc, dec, f):
-        with record_function("stage.encode_frame"):
-            chunk = enc.encode(f)
-        with record_function("stage.decode_frame"):
-            dec.decode(chunk)
-        torch.cuda.synchronize()
-
-    for mod_name, attr in PROFILE_STAGES:
-        pkg = "cairo_tpu_torch" if mod_name == "native" else \
-            "cairo_tpu_torch.gpu"
-        mod = importlib.import_module(f"{pkg}.{mod_name}")
-        setattr(mod, attr, labelled(f"stage.{attr}", getattr(mod, attr)))
-    frames = synth_frames(1920, 1080, 4, seed=SEED % 1000)
-    enc, dec = gpu["api"].GpuEncoder(), gpu["api"].GpuDecoder()
-    enc.set_quality(16)
-    for f in frames[:2]:
-        frame(enc, dec, f)
+    warm()
     t0 = time.perf_counter()
-    frame(enc, dec, frames[2])
+    timed()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        frame(enc, dec, frames[3])
+        traced()
     events = prof.key_averages()
 
     def dev_us(e, self_only):
@@ -407,7 +618,7 @@ def phase_profile(torch, gpu, smi):
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not e.key.startswith("stage.")]
     busy = sum(dev_us(e, True) for e in kernels) / 1e6
-    log(f"profile: one 1920x1080 q16 inter frame encoded + decoded on {smi}: "
+    log(f"profile: {label} on {smi}: "
         f"wall {wall * 1e3:.1f} ms unprofiled; kernels {busy * 1e3:.1f} ms "
         f"in {sum(e.count for e in kernels)} launches, so the device is busy "
         f"{100 * busy / wall:.1f}% and idle {100 - 100 * busy / wall:.1f}% "
@@ -425,14 +636,63 @@ def phase_profile(torch, gpu, smi):
         log(f"profile: {e.key[:70]:<70} {dev_us(e, True) / 1e3:8.2f} "
             f"{e.count:6d}")
     # the profiler ties a kernel to a range only through the ATen op that
-    # launched it; K1-K4 launch through ctypes, so their stage rows above
-    # read 0 device ms and their device time is here
+    # launched it; the port's kernels launch through ctypes, so their
+    # stage rows above read 0 device ms and their device time is here
     log("profile: the port's kernels | device ms | launches")
     for kname in PORT_KERNELS:
         hits = [e for e in kernels if kname in e.key]
         log(f"profile: {kname:<22} "
             f"{sum(dev_us(e, True) for e in hits) / 1e3:8.3f} "
             f"{sum(e.count for e in hits):6d}")
+
+
+def phase_profile(torch, gpu, smi):
+    """Host and device time per pipeline stage for one fast-mode inter
+    frame (encoded and decoded) and one conformance inter frame (encoded),
+    and the device's busy share against unprofiled runs of the same work."""
+    import importlib
+    from torch.profiler import record_function
+
+    from cairo_tpu_torch.synth import synth_frames
+
+    def labelled(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    for mod_name, attr in PROFILE_STAGES:
+        pkg = "cairo_tpu_torch" if mod_name == "native" else \
+            "cairo_tpu_torch.gpu"
+        mod = importlib.import_module(f"{pkg}.{mod_name}")
+        setattr(mod, attr, labelled(f"stage.{attr}", getattr(mod, attr)))
+    frames = synth_frames(1920, 1080, 4, seed=SEED % 1000)
+
+    def fast(enc, dec, f):
+        with record_function("stage.encode_frame"):
+            chunk = enc.encode(f)
+        with record_function("stage.decode_frame"):
+            dec.decode(chunk)
+        torch.cuda.synchronize()
+
+    enc, dec = gpu["api"].GpuEncoder(), gpu["api"].GpuDecoder()
+    enc.set_quality(16)
+    profile_frame(
+        torch, smi, "one 1920x1080 q16 inter frame encoded + decoded",
+        lambda: [fast(enc, dec, f) for f in frames[:2]],
+        lambda: fast(enc, dec, frames[2]), lambda: fast(enc, dec, frames[3]))
+
+    def conf(cenc, f):
+        with record_function("stage.encode_frame"):
+            cenc.encode(f)
+        torch.cuda.synchronize()
+
+    cenc = gpu["api"].ConformanceGpuEncoder()
+    cenc.set_quality(16)
+    profile_frame(
+        torch, smi, "one 1920x1080 q16 conformance inter frame encoded",
+        lambda: [conf(cenc, f) for f in frames[:2]],
+        lambda: conf(cenc, frames[2]), lambda: conf(cenc, frames[3]))
 
 
 def main():
@@ -451,13 +711,16 @@ def main():
     log(f"phase 0: card {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    from cairo_tpu_torch.gpu import _build, api, cuda_motion, cuda_pred
-    gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred)
+    from cairo_tpu_torch.gpu import (_build, api, cuda_inter, cuda_motion,
+                                     cuda_pred, cuda_wave, ops, wavefront)
+    gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred,
+               cuda_inter=cuda_inter, cuda_wave=cuda_wave, ops=ops,
+               wavefront=wavefront)
     secs = _build.build_all(verbose=True)
     log(f"phase 1: built kernels in {secs['kernels_s']:.1f}s and the native "
         f"library in {secs['native_s']:.1f}s")
     log("kernels: K1 chroma_max_maps, K2 dense_select, K3 gather_windows, "
-        "K4 pred_planes")
+        "K4 pred_planes, K5 inter_search, K6 wave_pass")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gpu, smi)
         faulthandler.cancel_dump_traceback_later()
@@ -481,6 +744,28 @@ def main():
     phase_cpu_vs_card(gpu)
     log("phase 4: CPU and card chunks byte-identical at 176x144")
 
+    recs.update(phase_kernels_conformance(torch, np, gpu))
+    for k in ("K4w", "K5", "K6"):
+        r = recs[k]
+        log(f"phase 2b: {k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms) "
+            f"on {smi}")
+    log(f"phase 2b: K6's launches with an empty kernel: "
+        f"{recs['K6']['floor_ms']:.3f} ms on {smi}")
+
+    claunches, csum = phase_conformance(torch, np, gpu)
+    launches.update(claunches)
+    log(f"phase 5: conformance encode 1920x1080 q16, {csum['frames']} frames "
+        f"on {smi}: inter frames {csum['inter_encode_fps']:.2f} fps; psnr "
+        f"{csum['psnr_db']:.2f} dB, {csum['kbits_per_frame']:.1f} "
+        f"kbit/frame; encode ms {csum['encode_ms']}; stage ms "
+        f"{csum['stage_ms']}; launches {claunches} in "
+        f"{csum['wave_pass_calls']} wave_pass calls; decoder host frames "
+        f"{csum['host_frames']}")
+
+    phase_conformance_cpu_vs_card(gpu)
+    log("phase 6: conformance CPU and card chunks byte-identical at 176x144, "
+        "q 4, 16, 29")
+
     meta = {
         "K1": ("chroma_max_maps", "src/cairo_tpu_torch/gpu/csrc/motion.cu",
                "src/cairo_tpu/tpu/pallas_motion.py:314"),
@@ -490,6 +775,12 @@ def main():
                "src/cairo_tpu/tpu/pallas_pred.py:313"),
         "K4": ("pred_planes", "src/cairo_tpu_torch/gpu/csrc/pred.cu",
                "src/cairo_tpu/tpu/pallas_pred.py:221"),
+        "K4w": ("pred_planes_wide", "src/cairo_tpu_torch/gpu/csrc/pred.cu",
+                "src/cairo_tpu/tpu/pallas_pred.py:221"),
+        "K5": ("inter_search", "src/cairo_tpu_torch/gpu/csrc/inter.cu",
+               "src/cairo_tpu/tpu/pallas_inter.py:395"),
+        "K6": ("wave_pass", "src/cairo_tpu_torch/gpu/csrc/wave.cu",
+               "src/cairo_tpu/tpu/pallas_wave.py:1045"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():

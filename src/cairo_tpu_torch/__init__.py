@@ -1,28 +1,31 @@
-"""cairo-tpu-torch: the evx1 fast-mode codec on PyTorch and CUDA (Hopper).
+"""cairo-tpu-torch: the evx1 codec on PyTorch and CUDA (Hopper).
 
 The counterpart of the `cairo_tpu` package, which stays the reference.
 Public surface:
   GpuEncoder / GpuDecoder  -- fast-mode encode and decode on a CUDA card
                               (or on the CPU with device="cpu"); streams
                               are byte-identical to cairo_tpu's TpuEncoder.
+  ConformanceGpuEncoder    -- the reference encoder's own bytes on the
+                              card (wavefront schedule), identical to
+                              ConformanceTpuEncoder's.
   checkpoint / metrics     -- session save/resume, per-frame stats.
 
 Layout mirrors cairo_tpu: `gpu/` is the counterpart of `cairo_tpu/tpu/`,
-with `cuda_motion.py` and `cuda_pred.py` in place of the Pallas kernels
-and the CUDA sources under `gpu/csrc/`. The package imports torch, numpy
-and the standard library only.
+with `cuda_motion.py`, `cuda_pred.py`, `cuda_inter.py` and `cuda_wave.py`
+in place of the Pallas kernels and the CUDA sources under `gpu/csrc/`.
+The package imports torch, numpy and the standard library only.
 """
 
 from . import checkpoint, metrics, tables
 from .blocktypes import BlockTable
 
 __version__ = "0.1.0"
-__all__ = ["GpuEncoder", "GpuDecoder", "BlockTable", "checkpoint",
-           "metrics", "tables"]
+__all__ = ["GpuEncoder", "GpuDecoder", "ConformanceGpuEncoder",
+           "BlockTable", "checkpoint", "metrics", "tables"]
 
 
 def __getattr__(name):
-    if name in ("GpuEncoder", "GpuDecoder"):
+    if name in ("GpuEncoder", "GpuDecoder", "ConformanceGpuEncoder"):
         from .gpu import api
         return getattr(api, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,8 +1,9 @@
 """Builds the port's native libraries from the sources in the checkout.
 
 Two shared libraries with plain C interfaces, loaded with ctypes:
-  * the CUDA kernels (csrc/*.cu): one `nvcc` per source, all started
-    together, then one link; built for sm_90a (Hopper) on first use;
+  * the CUDA kernels (csrc/*.cu, sharing csrc/*.cuh): one `nvcc` per
+    source, all started together, then one link; built for sm_90a
+    (Hopper) on first use;
   * the host entropy coder and sequential decoder (native/*.cpp), g++.
 
 Each library lands in `<repo>/.torch_build/<sha256 of sources and
@@ -30,6 +31,7 @@ _PKG = Path(__file__).resolve().parents[1]
 BUILD_ROOT = _PKG.parents[1] / ".torch_build"
 
 CSRC = sorted((_PKG / "gpu" / "csrc").glob("*.cu"))
+CSRC_HEADERS = sorted((_PKG / "gpu" / "csrc").glob("*.cuh"))
 NATIVE_SRC = [_PKG / "native" / "entropy.cpp", _PKG / "native" / "decoder.cpp"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -115,8 +117,8 @@ def native_library_path() -> Path:
 
 
 def kernel_library_path(verbose: bool = False) -> Path:
-    return _ensure("cairo_kernels", CSRC, ["nvcc"] + NVCC_FLAGS,
-                   _build_kernels, verbose=verbose)
+    return _ensure("cairo_kernels", CSRC + CSRC_HEADERS,
+                   ["nvcc"] + NVCC_FLAGS, _build_kernels, verbose=verbose)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -181,6 +183,9 @@ def launch(fn, device, *args):
     returned by the launcher (a launch the runtime refused never runs)."""
     import torch
 
+    if len(args) + 1 != len(fn.argtypes):  # ctypes would pass extras as int
+        raise TypeError(f"{fn.__name__}: {len(args)} arguments and the "
+                        f"stream for {len(fn.argtypes)} parameters")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)

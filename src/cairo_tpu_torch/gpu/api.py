@@ -1,11 +1,14 @@
-"""Host-side encoder/decoder around the torch pipeline and the native
-entropy coder (counterpart of cairo_tpu/tpu/api.py: TpuEncoder and
-TpuDecoder).
+"""Host-side encoders/decoder around the torch pipeline and the native
+entropy coder (counterpart of cairo_tpu/tpu/api.py: TpuEncoder,
+ConformanceTpuEncoder and TpuDecoder).
 
 GpuEncoder produces format-conformant evx1 streams in fast mode, byte-
-identical to TpuEncoder's. GpuDecoder reconstructs fast-mode streams on
-the device; frames with intra-motion blocks or motion beyond the fast
-reach (reference-encoder streams) take the native sequential C++
+identical to TpuEncoder's. ConformanceGpuEncoder produces the reference
+encoder's own bytes (wavefront schedule), identical to
+ConformanceTpuEncoder's and cpuref.Evx1Encoder's. GpuDecoder
+reconstructs fast-mode streams on the device; frames with intra-motion
+blocks or motion beyond the fast reach (reference-encoder streams, the
+conformance encoder's among them) take the native sequential C++
 decoder, as TpuDecoder does with use_wavefront_decode = False, and are
 counted in `host_frames`. Both run on `device` ("cuda" by default, which
 raises without a card; the tests pass "cpu"). Frames are processed one
@@ -27,7 +30,7 @@ from ..cpuref import imaging as cpu_imaging
 from ..cpuref.stream import (FRAME_DESC_SIZE, HEADER_SIZE, _FRAME_FMT,
                              pack_header, parse_header)
 from ..xmath import clip_range
-from . import engine
+from . import engine, wavefront
 from . import wire as wire_mod
 
 MB = tables.MACROBLOCK_SIZE
@@ -50,16 +53,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def state_from_numpy(arrays, device) -> dict:
-    """The port's state from the arrays of TpuEncoder/TpuDecoder.state_dict
-    (or the port's own): ring and coefficient planes; the XLA-only win_*
-    window caches are dropped."""
-    return {k: torch.as_tensor(np.ascontiguousarray(arrays[k], np.int16),
-                               device=device).clone() for k in STATE_KEYS}
+def state_from_numpy(arrays, device, keys=STATE_KEYS) -> dict:
+    """The port's state from the arrays of a state_dict of TpuEncoder,
+    TpuDecoder or ConformanceTpuEncoder (or the port's own): ring and
+    coefficient planes, and for the conformance encoder (keys =
+    wavefront.STATE_KEYS) the stale q_index / variance fields; the
+    XLA-only win_* window caches are dropped."""
+    dtypes = dict(stale_q=np.uint8)
+    return {k: torch.as_tensor(
+        np.ascontiguousarray(arrays[k], dtypes.get(k, np.int16)),
+        device=device).clone() for k in keys}
 
 
-def _state_to_numpy(state) -> dict:
-    return {k: state[k].cpu().numpy() for k in STATE_KEYS}
+def _state_to_numpy(state, keys=STATE_KEYS) -> dict:
+    return {k: state[k].cpu().numpy() for k in keys}
 
 
 def _upload(buf: np.ndarray, device) -> torch.Tensor:
@@ -266,6 +273,109 @@ class GpuEncoder:
             self._coef_y = np.array(arrays["coef_y"], np.int16)
             self._coef_u = np.array(arrays["coef_u"], np.int16)
             self._coef_v = np.array(arrays["coef_v"], np.int16)
+
+
+class ConformanceGpuEncoder:
+    """Encoding bit-exact against the reference encoder, on the device
+    (wavefront schedule, gpu/wavefront.py; counterpart of
+    ConformanceTpuEncoder). Produces the same bytes as cpuref.Evx1Encoder
+    and ConformanceTpuEncoder. Runs on `device` ("cuda" by default, which
+    raises without a card; pass "cpu" for the plain PyTorch path)."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self._state = None
+        self.frame_type = FRAME_INTRA
+        self.frame_index = 0
+        self.quality = tables.DEFAULT_QUALITY
+        self.width = self.height = 0
+        self.last_stats = None
+
+    def set_quality(self, quality: int):
+        self.quality = int(clip_range(quality, 1, 31))
+
+    def insert_intra(self):
+        self.frame_type = FRAME_INTRA
+
+    def _dispatch(self, rgb):
+        height, width = rgb.shape[:2]
+        header = b""
+        if self._state is None:
+            self.width, self.height = width, height
+            self._aw, self._ah = _align(width), _align(height)
+            self._state = wavefront.init_state(self._aw, self._ah,
+                                               self.device)
+            header = pack_header(width, height)
+        if (width, height) != (self.width, self.height):
+            raise ValueError("frame dimensions changed mid-stream")
+        frame_desc = struct.pack(_FRAME_FMT, self.frame_type,
+                                 self.frame_index, self.quality)
+        t0 = time.perf_counter()
+        src_fmt, src_buf = native.rgb_to_yuv5d(rgb, self._aw, self._ah,
+                                               self.frame_index, self.quality)
+        self._state, out = wavefront.conformance_encode_step(
+            _upload(src_buf, self.device), self._state, aligned_w=self._aw,
+            aligned_h=self._ah, frame_w=self.width, frame_h=self.height,
+            is_inter=self.frame_type == FRAME_INTER, src_fmt=src_fmt)
+        pending = dict(header=header, frame_desc=frame_desc, out=out,
+                       frame_index=self.frame_index,
+                       frame_type=self.frame_type, quality=self.quality,
+                       t_dispatch=t0)
+        self.frame_type = FRAME_INTER
+        if tables.PERIODIC_INTRA_RATE and \
+                (self.frame_index + 1) % tables.PERIODIC_INTRA_RATE == 0:
+            self.insert_intra()
+        self.frame_index += 1
+        return pending
+
+    def _finish(self, pending) -> bytes:
+        out = {k: v.cpu().numpy() for k, v in pending["out"].items()}
+        t_dev = time.perf_counter()
+        bt = BlockTable(**{k: out[k] for k in _BT_FIELDS})
+        slice_bytes, _ = native.encode_slice(bt, out["coef_y"],
+                                             out["coef_u"], out["coef_v"])
+        t_ent = time.perf_counter()
+        chunk = pending["header"] + pending["frame_desc"] + slice_bytes
+        self.last_stats = metrics.frame_stats(
+            pending["frame_index"], pending["frame_type"],
+            pending["quality"], len(chunk), out["block_type"],
+            out["q_index"],
+            stage_ms={"device": (t_dev - pending["t_dispatch"]) * 1e3,
+                      "entropy": (t_ent - t_dev) * 1e3})
+        return chunk
+
+    def encode(self, rgb: np.ndarray) -> bytes:
+        """Encodes an (H, W, 3) uint8 frame; returns its byte chunk."""
+        return self._finish(self._dispatch(rgb))
+
+    def encode_many(self, frames):
+        """Yields one byte chunk per input frame (frame by frame: the same
+        bytes as a loop over encode)."""
+        for frame in frames:
+            yield self.encode(frame)
+
+    # -- checkpoint / resume (checkpoint.py format) -------------------------
+
+    def state_dict(self):
+        meta = dict(kind="conformance_gpu_encoder", width=self.width,
+                    height=self.height, frame_index=self.frame_index,
+                    frame_type=self.frame_type, quality=self.quality,
+                    init=self._state is not None)
+        arrays = _state_to_numpy(self._state, wavefront.STATE_KEYS) \
+            if self._state is not None else {}
+        return meta, arrays
+
+    def load_state_dict(self, meta, arrays):
+        """Resumes from a ConformanceGpuEncoder or a ConformanceTpuEncoder
+        checkpoint."""
+        self.frame_index = meta["frame_index"]
+        self.frame_type = meta["frame_type"]
+        self.quality = meta["quality"]
+        if meta["init"]:
+            self.width, self.height = meta["width"], meta["height"]
+            self._aw, self._ah = _align(self.width), _align(self.height)
+            self._state = state_from_numpy(arrays, self.device,
+                                           wavefront.STATE_KEYS)
 
 
 class GpuDecoder:

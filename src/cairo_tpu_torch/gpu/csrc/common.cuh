@@ -1,0 +1,250 @@
+// Helpers shared by the prediction (pred.cu), inter-search (inter.cu)
+// and wave-pass (wave.cu) kernels. The integer helpers repeat the C
+// arithmetic of gpu/ops.py exactly, int32 wrap included: where a torch
+// int32 op may wrap, the helper computes in uint32_t and casts back,
+// because signed overflow is undefined in CUDA C++. The search helpers
+// (windows, candidate metrics, acceptance rules) are the one copy of the
+// reference's motion-search arithmetic that K5 and K6 both run.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cairo {
+
+constexpr int MB = 16;
+constexpr int RING = 4;
+constexpr int SAD_THRESHOLD = 8192;   // tables.MOTION_SAD_THRESHOLD
+constexpr int INT32_MAX_ = 0x7FFFFFFF;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ int add_w(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int sub_w(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int mul_w(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int wrap16(int v) {
+  return static_cast<int>(static_cast<int16_t>(static_cast<uint16_t>(v)));
+}
+
+// torch.div(a, d, rounding_mode="floor") for d > 0
+__device__ __forceinline__ int floordiv_pos(int a, int d) {
+  int q = a / d;
+  if (a % d != 0 && a < 0) --q;
+  return q;
+}
+
+// ops.trunc_div_pos: floor(abs(n) / d) with n's sign, where abs and the
+// negation wrap as torch's int32 ops do (abs(INT32_MIN) == INT32_MIN)
+__device__ __forceinline__ int trunc_div_pos(int n, int d) {
+  const int q = floordiv_pos(n < 0 ? sub_w(0, n) : n, d);
+  return n < 0 ? sub_w(0, q) : q;
+}
+
+// ops.rounded_div_pos (math.h:228-236), d > 0
+__device__ __forceinline__ int rounded_div_pos(int n, int d) {
+  const int half = d / 2;
+  return trunc_div_pos(n < 0 ? sub_w(n, half) : add_w(n, half), d);
+}
+
+// ops.lerp_half: wrap16(trunc_div(round_out(a + b, 1), 2))
+__device__ __forceinline__ int lerp_half(int a, int b) {
+  const int t = a + b;
+  return wrap16(trunc_div_pos(t < 0 ? t - 1 : t + 1, 2));
+}
+
+// ops.lerp_quarter: wrap16(trunc_div(round_out(3a + b, 2), 4))
+__device__ __forceinline__ int lerp_quarter(int a, int b) {
+  const int t = 3 * a + b;
+  return wrap16(trunc_div_pos(t < 0 ? t - 2 : t + 2, 4));
+}
+
+// sample of an (h, w) plane, zero outside it (the anchor's zero padding)
+template <typename T>
+__device__ __forceinline__ int pix(const T* p, int h, int w, int y, int x) {
+  return (y >= 0 && y < h && x >= 0 && x < w)
+             ? static_cast<int>(p[static_cast<size_t>(y) * w + x])
+             : 0;
+}
+
+// Block-wide sums and maxima of K values per thread, for a block of
+// NWARP full warps; the totals land in out_sum[k] / out_max[k] (shared).
+// scratch holds 2 * K * NWARP ints. Ends with a barrier.
+template <int K, int NWARP>
+__device__ __forceinline__ void block_sum_max(int (&s)[K], int (&m)[K],
+                                              int* scratch, int* out_sum,
+                                              int* out_max) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const unsigned su = __reduce_add_sync(FULL, static_cast<unsigned>(s[k]));
+    const int mx = __reduce_max_sync(FULL, m[k]);
+    if (lane == 0) {
+      scratch[k * NWARP + warp] = static_cast<int>(su);
+      scratch[(K + k) * NWARP + warp] = mx;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    const int k = threadIdx.x;
+    unsigned su = 0;
+    int mx = scratch[(K + k) * NWARP];
+    for (int i = 0; i < NWARP; ++i) {
+      su += static_cast<unsigned>(scratch[k * NWARP + i]);
+      mx = max(mx, scratch[(K + k) * NWARP + i]);
+    }
+    out_sum[k] = static_cast<int>(su);
+    out_max[k] = mx;
+  }
+  __syncthreads();
+}
+
+// ---- motion search (K5 inter.cu, K6 wave.cu): blocks of SEARCH_THREADS
+// threads, thread t owning luma pixel t and, for t < 128, chroma pixel t
+// (U below 64, V above)
+
+constexpr int SEARCH_THREADS = 256;
+
+// sub-pel direction d of motion.SP_DIRS (dy outer, dx inner, (0, 0)
+// skipped)
+__device__ __forceinline__ int dir_x(int d) { return (d + (d >= 4)) % 3 - 1; }
+__device__ __forceinline__ int dir_y(int d) { return (d + (d >= 4)) / 3 - 1; }
+
+// A macroblock's search windows in shared memory, int16: luma YW x YW
+// with the macroblock's own position at (YOX, YOY), chroma CW x CW with
+// it at (COX, COY). Pixel i of a 384-entry block is luma (16x16) for
+// i < 256, then U, then V (8x8 each). Offsets clamp to the window, as the
+// anchor's extract.extract_blocks clips.
+template <int YW, int YOX, int YOY, int CW, int COX, int COY>
+struct Windows {
+  int16_t y[YW * YW];
+  int16_t u[CW * CW];
+  int16_t v[CW * CW];
+
+  // fills the windows around the macroblock at (px, py) of (h, w) planes
+  // (chroma h/2 x w/2); reads outside a plane are zero
+  template <typename T>
+  __device__ __forceinline__ void load(const T* py_, const T* pu,
+                                       const T* pv, int h, int w, int px,
+                                       int py) {
+    for (int i = threadIdx.x; i < YW * YW; i += SEARCH_THREADS)
+      y[i] = static_cast<int16_t>(
+          pix(py_, h, w, py - YOY + i / YW, px - YOX + i % YW));
+    for (int i = threadIdx.x; i < CW * CW; i += SEARCH_THREADS) {
+      const int yy = py / 2 - COY + i / CW, xx = px / 2 - COX + i % CW;
+      u[i] = static_cast<int16_t>(pix(pu, h / 2, w / 2, yy, xx));
+      v[i] = static_cast<int16_t>(pix(pv, h / 2, w / 2, yy, xx));
+    }
+  }
+
+  // luma pixel i (0..255) of the block at full-pel offset (dx, dy) from
+  // the macroblock
+  __device__ __forceinline__ int luma(int dx, int dy, int i) const {
+    const int ox = clampi(dx + YOX, 0, YW - MB);
+    const int oy = clampi(dy + YOY, 0, YW - MB);
+    return y[(oy + (i >> 4)) * YW + ox + (i & 15)];
+  }
+
+  // chroma pixel j (0..63) of the U (or V) block at (dx, dy)
+  __device__ __forceinline__ int chroma(int dx, int dy, int j,
+                                        bool is_v) const {
+    const int cx = clampi((dx >> 1) + COX, 0, CW - 8);
+    const int cy = clampi((dy >> 1) + COY, 0, CW - 8);
+    return (is_v ? v : u)[(cy + (j >> 3)) * CW + cx + (j & 7)];
+  }
+
+  // pixel i of the 384-entry block at (dx, dy)
+  __device__ __forceinline__ int at(int dx, int dy, int i) const {
+    return i < 256 ? luma(dx, dy, i)
+                   : chroma(dx, dy, (i - 256) & 63, i >= 320);
+  }
+
+  // this thread's luma and chroma pixels of the candidate at (dx, dy)
+  __device__ __forceinline__ void cand_px(int dx, int dy, int& cy,
+                                          int& cc) const {
+    const int t = threadIdx.x;
+    cy = luma(dx, dy, t);
+    cc = t < 128 ? chroma(dx, dy, t & 63, t >= 64) : 0;
+  }
+
+  // this thread's pixels of the 16 sub-pel candidates around the block
+  // at (bx, by): 2d the half-pel, 2d+1 the quarter-pel blend with its
+  // neighbour in direction d
+  __device__ __forceinline__ void subpel_px(int bx, int by, int (&cy)[16],
+                                            int (&cc)[16]) const {
+    int yb, cb;
+    cand_px(bx, by, yb, cb);
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      int ty, tc;
+      cand_px(bx + dir_x(d), by + dir_y(d), ty, tc);
+      cy[2 * d] = lerp_half(yb, ty);
+      cy[2 * d + 1] = lerp_quarter(yb, ty);
+      cc[2 * d] = lerp_half(cb, tc);
+      cc[2 * d + 1] = lerp_quarter(cb, tc);
+    }
+  }
+};
+
+// SAD (luma sum) and MAD (max over Y, U, V) of K candidates against the
+// source block src (384 ints, Y then U then V), given each thread's
+// candidate pixels (Windows::cand_px); results in out_sad[k] /
+// out_mad[k]. Ends with a barrier.
+template <int K, int NWARP>
+__device__ __forceinline__ void cand_metrics(const int* src,
+                                             const int (&cy)[K],
+                                             const int (&cc)[K],
+                                             int* scratch, int* out_sad,
+                                             int* out_mad) {
+  const int t = threadIdx.x;
+  int sums[K], maxs[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int dy = abs(src[t] - cy[k]);
+    const int dc = t < 128 ? abs(src[256 + t] - cc[k]) : 0;
+    sums[k] = dy;
+    maxs[k] = max(dy, dc);
+  }
+  block_sum_max<K, NWARP>(sums, maxs, scratch, out_sad, out_mad);
+}
+
+// full-pel acceptance of a candidate against the best so far
+// (motion.cpp:111-149; motion.accept_full), with the reference's
+// C-precedence quirk: the SAD-tie term needs c_sad < SAD_THRESHOLD, and
+// c_mad < mad_thr is OR-ed outside it
+__device__ __forceinline__ bool eval_accept(int sad, int mad, int ssd,
+                                            int c_sad, int c_mad, int c_ssd,
+                                            int mad_thr) {
+  if (mad < mad_thr) return c_mad < mad || (c_mad == mad && c_ssd < ssd);
+  return c_sad < sad || (c_sad == sad && c_ssd < ssd && c_sad < SAD_THRESHOLD)
+         || c_mad < mad_thr;
+}
+
+// sub-pel acceptance (motion.cpp:277-352; motion.accept_subpel)
+__device__ __forceinline__ bool subpel_accept(int sad, int mad, int c_sad,
+                                              int c_mad, int mad_thr) {
+  if (mad < mad_thr) return c_mad < mad;
+  return (c_sad < sad && c_sad < SAD_THRESHOLD) || c_mad < mad_thr;
+}
+
+// the block at offset (dx, dy) from the macroblock at (px, py) lies
+// inside the aligned (h, w) frame
+__device__ __forceinline__ bool in_frame(int px, int py, int dx, int dy,
+                                         int h, int w) {
+  const int gx = px + dx, gy = py + dy;
+  return gx >= 0 && gx <= w - MB && gy >= 0 && gy <= h - MB;
+}
+
+}  // namespace cairo

@@ -11,7 +11,10 @@
 // a base block at its clamped motion offset and, for sub-pel MBs, the
 // neighbour at (mx+di, my+dj); applies the exact half or quarter lerp of
 // ops.lerp_half / lerp_quarter; INTRA_DEFAULT blocks (`zero`) are 0. The
-// offsets clamp to the fast-mode window pads, +-17 luma and +-9 chroma.
+// offsets clamp to the window pads given as arguments: [0, 2*pad] around
+// -pad, as extract.extract_blocks clips to a window of that pad. The fast
+// mode passes 17/9 (luma/chroma); the conformance encoder 33/17, the
+// reference's +-31 full-pel reach plus 1 sub-pel (wavefront.py:733-780).
 // One launch covers the Y, U and V planes.
 //
 // Both are gathers bounded by memory traffic: one thread per output
@@ -19,50 +22,16 @@
 // coalesce along each block row. The TPU versions' one-hot band matmuls
 // and hi/lo byte splits are not needed: these are plain integer loads.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int MB = 16;
-constexpr int RING = 4;
-constexpr int YPAD = 17;  // cuda_pred.Y_PAD
-constexpr int CPAD = 9;   // cuda_pred.C_PAD
+using namespace cairo;
+
 constexpr int THREADS = 256;
 
 __constant__ int kDirX[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
 __constant__ int kDirY[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ int wrap16(int v) {
-  return ((v + 0x8000) & 0xFFFF) - 0x8000;
-}
-
-// ops.lerp_half: wrap16(trunc_div(round_out(a + b, 1), 2))
-__device__ __forceinline__ int lerp_half(int a, int b) {
-  const int t = a + b;
-  const int r = t < 0 ? t - 1 : t + 1;
-  const int q = abs(r) / 2;
-  return wrap16(r < 0 ? -q : q);
-}
-
-// ops.lerp_quarter: wrap16(trunc_div(round_out(3a + b, 2), 4))
-__device__ __forceinline__ int lerp_quarter(int a, int b) {
-  const int t = 3 * a + b;
-  const int r = t < 0 ? t - 2 : t + 2;
-  const int q = abs(r) / 4;
-  return wrap16(r < 0 ? -q : q);
-}
-
-__device__ __forceinline__ int pix(const int16_t* p, int h, int w, int y,
-                                   int x) {
-  return (y >= 0 && y < h && x >= 0 && x < w)
-             ? static_cast<int>(p[static_cast<size_t>(y) * w + x])
-             : 0;
-}
 
 __global__ void __launch_bounds__(THREADS)
 gather_windows_kernel(const int16_t* __restrict__ planes,
@@ -93,9 +62,9 @@ pred_planes_kernel(const int16_t* __restrict__ ry,
                    const int* __restrict__ slot, const int* __restrict__ mx,
                    const int* __restrict__ my, const int* __restrict__ spp,
                    const int* __restrict__ spa, const int* __restrict__ spi,
-                   const int* __restrict__ zero, int h, int w,
-                   int* __restrict__ out_y, int* __restrict__ out_u,
-                   int* __restrict__ out_v) {
+                   const int* __restrict__ zero, int h, int w, int ypad,
+                   int cpad, int* __restrict__ out_y,
+                   int* __restrict__ out_u, int* __restrict__ out_v) {
   const size_t ys = static_cast<size_t>(h) * w;
   const size_t cs = ys / 4;
   size_t j = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -105,13 +74,13 @@ pred_planes_kernel(const int16_t* __restrict__ ry,
   int ph, pw, blk, pad;
   const bool luma = j < ys;
   if (luma) {
-    plane = ry; out = out_y; ph = h; pw = w; blk = MB; pad = YPAD;
+    plane = ry; out = out_y; ph = h; pw = w; blk = MB; pad = ypad;
   } else if (j < ys + cs) {
     j -= ys;
-    plane = ru; out = out_u; ph = h / 2; pw = w / 2; blk = MB / 2; pad = CPAD;
+    plane = ru; out = out_u; ph = h / 2; pw = w / 2; blk = MB / 2; pad = cpad;
   } else {
     j -= ys + cs;
-    plane = rv; out = out_v; ph = h / 2; pw = w / 2; blk = MB / 2; pad = CPAD;
+    plane = rv; out = out_v; ph = h / 2; pw = w / 2; blk = MB / 2; pad = cpad;
   }
   const int y = static_cast<int>(j / pw), x = static_cast<int>(j % pw);
   const int n = (y / blk) * (w / MB) + x / blk;
@@ -169,8 +138,8 @@ extern "C" int cairo_pred_planes(const void* ry, const void* ru,
                                  const void* mx, const void* my,
                                  const void* spp, const void* spa,
                                  const void* spi, const void* zero, int h,
-                                 int w, void* out_y, void* out_u,
-                                 void* out_v, void* stream) {
+                                 int w, int ypad, int cpad, void* out_y,
+                                 void* out_u, void* out_v, void* stream) {
   const size_t total = static_cast<size_t>(h) * w * 3 / 2;
   pred_planes_kernel<<<blocks_for(total), THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -179,7 +148,7 @@ extern "C" int cairo_pred_planes(const void* ry, const void* ru,
       static_cast<const int*>(mx), static_cast<const int*>(my),
       static_cast<const int*>(spp), static_cast<const int*>(spa),
       static_cast<const int*>(spi), static_cast<const int*>(zero), h, w,
-      static_cast<int*>(out_y), static_cast<int*>(out_u),
+      ypad, cpad, static_cast<int*>(out_y), static_cast<int*>(out_u),
       static_cast<int*>(out_v));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,9 @@ adds one to LAUNCHES[name].
     extract.mb_windows, as motion.py:454-463 does.
   * pred_planes (K4) replaces pallas_pred.pred_planes (pallas_pred.py:221);
     plain version: the XLA branch of engine._gather_pred (engine.py:94-104)
-    with motion.pred_block_from_windows (motion.py:374).
+    with motion.pred_block_from_windows (motion.py:374) at the fast-mode
+    pads 17/9, and the XLA branch of wavefront._wide_gather_pred
+    (wavefront.py:737-780) at the conformance pads 33/17.
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ RING = tables.REFERENCE_FRAME_COUNT
 R = tables.MOTION_SEARCH_RADIUS
 Y_PAD = R + 1          # fast-mode prediction window pad (mv +-16, sub-pel 1)
 C_PAD = R // 2 + 1
+WIDE_YPAD = 2 * R + 1  # conformance inter reach: +-31 full-pel + 1 sub-pel
+WIDE_CPAD = R + 1
 I32 = torch.int32
 DIRS = ((-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0), (-1, 1), (0, 1), (1, 1))
 
-LAUNCHES = {"gather_windows": 0, "pred_planes": 0}
+# pred_planes counts its launches at the fast-mode pads and at the wide
+# pads apart, so a run shows which of the two paths it took
+LAUNCHES = {"gather_windows": 0, "pred_planes": 0, "pred_planes_wide": 0}
 
 
 def _slot_index(slot, device):
@@ -72,22 +78,23 @@ def gather_windows(planes, slot, mx, my, block, pad):
 
 # ----------------------------------------------------------------- K4
 
-def pred_block_from_windows(wins, mx, my, sp_pred, sp_amount, sp_index):
+def pred_block_from_windows(wins, mx, my, sp_pred, sp_amount, sp_index,
+                            ypad=Y_PAD, cpad=C_PAD):
     """The (possibly sub-pel interpolated) prediction block of every MB
-    from its windows (motion.pred_block_from_windows)."""
+    from its windows of pads ypad/cpad (motion.pred_block_from_windows)."""
     wy, wu, wv = wins
     dirs = torch.tensor(DIRS, dtype=I32, device=mx.device)
     d = dirs[sp_index.long().clamp(0, 7)]
-    beta_y = extract.extract_blocks(wy, mx + Y_PAD, my + Y_PAD, MB)
-    beta_u = extract.extract_blocks(wu, (mx >> 1) + C_PAD, (my >> 1) + C_PAD,
+    beta_y = extract.extract_blocks(wy, mx + ypad, my + ypad, MB)
+    beta_u = extract.extract_blocks(wu, (mx >> 1) + cpad, (my >> 1) + cpad,
                                     MB // 2)
-    beta_v = extract.extract_blocks(wv, (mx >> 1) + C_PAD, (my >> 1) + C_PAD,
+    beta_v = extract.extract_blocks(wv, (mx >> 1) + cpad, (my >> 1) + cpad,
                                     MB // 2)
     tx, ty = mx + d[:, 0], my + d[:, 1]
-    sp_y = extract.extract_blocks(wy, tx + Y_PAD, ty + Y_PAD, MB)
-    sp_u = extract.extract_blocks(wu, (tx >> 1) + C_PAD, (ty >> 1) + C_PAD,
+    sp_y = extract.extract_blocks(wy, tx + ypad, ty + ypad, MB)
+    sp_u = extract.extract_blocks(wu, (tx >> 1) + cpad, (ty >> 1) + cpad,
                                   MB // 2)
-    sp_v = extract.extract_blocks(wv, (tx >> 1) + C_PAD, (ty >> 1) + C_PAD,
+    sp_v = extract.extract_blocks(wv, (tx >> 1) + cpad, (ty >> 1) + cpad,
                                   MB // 2)
     use_sp = sp_pred.bool()[:, None, None]
     amount = sp_amount.bool()[:, None, None]
@@ -100,7 +107,7 @@ def pred_block_from_windows(wins, mx, my, sp_pred, sp_amount, sp_index):
 
 
 def pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my, sp_pred,
-                      sp_amount, sp_index, zero):
+                      sp_amount, sp_index, zero, ypad=Y_PAD, cpad=C_PAD):
     height, width = ring_y.shape[1:]
     slot = slot.to(I32)
 
@@ -112,10 +119,10 @@ def pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my, sp_pred,
             sel = torch.where(m, win, 0 if sel is None else sel)
         return sel
 
-    wins = (pick(ring_y, MB, Y_PAD), pick(ring_u, MB // 2, C_PAD),
-            pick(ring_v, MB // 2, C_PAD))
+    wins = (pick(ring_y, MB, ypad), pick(ring_u, MB // 2, cpad),
+            pick(ring_v, MB // 2, cpad))
     pred = pred_block_from_windows(wins, mx.to(I32), my.to(I32), sp_pred,
-                                   sp_amount, sp_index)
+                                   sp_amount, sp_index, ypad, cpad)
     zm = zero.bool()[:, None, None]
     py, pu, pv = (torch.where(zm, 0, p) for p in pred)
     return (ops.blocks_to_plane(py, height, width),
@@ -124,14 +131,16 @@ def pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my, sp_pred,
 
 
 def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
-                sp_index, zero):
+                sp_index, zero, ypad=Y_PAD, cpad=C_PAD):
     """Prediction planes (pred_y, pred_u, pred_v), int32, of the ring plane
     shapes. ring_*: (RING, H, W) int16; slot/mx/my/sp_index: (N,) int;
     sp_pred/sp_amount/zero: (N,) bool. The motion reach clamps to the
-    fast-mode window pads Y_PAD/C_PAD."""
+    window pads: ypad/cpad, the fast-mode Y_PAD/C_PAD (17/9) by default;
+    the conformance encoder passes WIDE_YPAD/WIDE_CPAD (33/17)."""
     if ring_y.device.type == "cpu":
         return pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my,
-                                 sp_pred, sp_amount, sp_index, zero)
+                                 sp_pred, sp_amount, sp_index, zero, ypad,
+                                 cpad)
     ring, h, w = ring_y.shape
     if h % MB or w % MB:
         raise ValueError("pred_planes: plane dims must be multiples of 16")
@@ -148,10 +157,11 @@ def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
     out_y = torch.empty((h, w), dtype=I32, device=dev)
     out_u = torch.empty((h // 2, w // 2), dtype=I32, device=dev)
     out_v = torch.empty((h // 2, w // 2), dtype=I32, device=dev)
-    fn = _build.kernel_fn("cairo_pred_planes", "ppppppppppiipppp")
+    fn = _build.kernel_fn("cairo_pred_planes", "ppppppppppiiiipppp")
     _build.launch(fn, dev, ring_y.data_ptr(), ring_u.data_ptr(),
                   ring_v.data_ptr(), *(t.data_ptr() for t in per_mb),
-                  h, w, out_y.data_ptr(), out_u.data_ptr(),
+                  h, w, ypad, cpad, out_y.data_ptr(), out_u.data_ptr(),
                   out_v.data_ptr())
-    LAUNCHES["pred_planes"] += 1
+    LAUNCHES["pred_planes" if (ypad, cpad) == (Y_PAD, C_PAD)
+             else "pred_planes_wide"] += 1
     return out_y, out_u, out_v

@@ -98,7 +98,7 @@ def _classify_inter(src, src_planes, ring, px, py, quality, frame_index,
     return best
 
 
-def _quantize_planes(ty, tu, tv, qp, intra_qm):
+def quantize_planes(ty, tu, tv, qp, intra_qm):
     """Quantizes every MB's 4 luma quads and 2 chroma blocks; intra_qm
     picks the intra matrices per MB."""
     qp4 = qp.repeat_interleave(4)
@@ -114,7 +114,7 @@ def _quantize_planes(ty, tu, tv, qp, intra_qm):
     return qy, qu, qv
 
 
-def _reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb):
+def reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb):
     """Dequantize + inverse DCT + prediction (decode.cpp:15-144) -> recon
     blocks; copy MBs take the prediction as it is."""
     qp4 = qp.repeat_interleave(4)
@@ -192,7 +192,7 @@ def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
     qp = ops.adaptive_qp(quality, ty) if adaptive else \
         torch.full((n,), 0, dtype=I32, device=dev) + quality
     intra_qm = best["is_intra"] & ~best["is_motion"]  # INTRA_DEFAULT only
-    qy, qu, qv = _quantize_planes(ty, tu, tv, qp, intra_qm)
+    qy, qu, qv = quantize_planes(ty, tu, tv, qp, intra_qm)
 
     # --- coefficient planes (stale persistence for copy blocks)
     copy_mb = best["is_copy"]
@@ -207,7 +207,7 @@ def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
             .to(torch.int16)
 
     # --- reconstruction, deblock, ring update
-    rec = _reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb)
+    rec = reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb)
     _finish_frame(state, rec, frame_index, copy_mb, qp, aligned_w,
                   aligned_h, deblock)
 
@@ -250,9 +250,9 @@ def _decode_common(table, coef_y, coef_u, coef_v, state, frame_index,
 
     cy = ops.plane_to_blocks(coef_y, MB)
     qy = ops.mb_quads(cy).reshape(-1, 8, 8)
-    rec = _reconstruct(qy, ops.plane_to_blocks(coef_u, MB // 2),
-                       ops.plane_to_blocks(coef_v, MB // 2), qp,
-                       intra_default, pred, is_copy)
+    rec = reconstruct(qy, ops.plane_to_blocks(coef_u, MB // 2),
+                      ops.plane_to_blocks(coef_v, MB // 2), qp,
+                      intra_default, pred, is_copy)
     out = _finish_frame(state, rec, frame_index, is_copy, qp, aligned_w,
                         aligned_h, deblock)
     state["coef_y"] = coef_y.to(torch.int16)

@@ -1,6 +1,7 @@
 """Per-macroblock window extraction (counterpart of
 cairo_tpu/tpu/extract.py), used by the plain versions of the prediction
-kernels (cuda_pred).
+kernels (cuda_pred), the exact inter search (motion.inter_search_exact,
+K5's plain version) and the wave pass (K6's plain version).
 
 The JAX package selects blocks from windows with one-hot matmuls because
 TPU gathers are slow; here `extract_blocks` is a plain integer gather
@@ -38,3 +39,17 @@ def extract_blocks(windows, ox, oy, block: int):
     cols = (ox[:, None] + iota)[:, None, :]
     return windows[torch.arange(n, device=windows.device)[:, None, None],
                    rows, cols]
+
+
+def extract_blocks_multi(windows, ox, oy, block: int):
+    """(N, K, block, block) blocks at K per-window offsets: ox/oy (N, K),
+    each clamped to the window (counterpart of extract_blocks_multi,
+    extract.py:99)."""
+    n, size, _ = windows.shape
+    ox = torch.clamp(ox.long(), 0, size - block)
+    oy = torch.clamp(oy.long(), 0, size - block)
+    iota = torch.arange(block, device=windows.device)
+    rows = (oy[:, :, None] + iota)[:, :, :, None]
+    cols = (ox[:, :, None] + iota)[:, :, None, :]
+    return windows[torch.arange(n, device=windows.device)[:, None, None,
+                                                          None], rows, cols]

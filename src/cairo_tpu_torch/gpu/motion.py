@@ -1,10 +1,15 @@
-"""Batched fast-mode inter motion search (counterpart of the fast path of
-cairo_tpu/tpu/motion.py, `inter_search` at motion.py:398-527).
+"""Batched inter motion search (counterpart of cairo_tpu/tpu/motion.py).
 
-Per reference frame: the chroma abs-max maps (K1) and the dense full-pel
-search over [-16, 16]^2 (K2) pick each macroblock's offset; then the
-sub-pel windows (K3) around it feed the reference's 8-direction half /
-quarter refinement, whose acceptance folds in the reference's order.
+Fast mode (`inter_search`, motion.py:398-527), per reference frame: the
+chroma abs-max maps (K1) and the dense full-pel search over [-16, 16]^2
+(K2) pick each macroblock's offset; then the sub-pel windows (K3) around
+it feed the reference's 8-direction half / quarter refinement, whose
+acceptance folds in the reference's order.
+
+Conformance mode (`inter_search_exact`, motion.py:86-236): the
+reference's hill-climb replayed for every MB at once, the building block
+of K5's plain version (cuda_inter.inter_search_plain), with
+`merge_descs` as the classify merge across reference frames.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ import torch
 
 from .. import tables
 from ..blocktypes import sp_dir_to_index
-from . import cuda_motion, cuda_pred, ops
+from . import cuda_motion, cuda_pred, extract, ops
 
 MB = tables.MACROBLOCK_SIZE
 SAD_THRESHOLD = tables.MOTION_SAD_THRESHOLD
@@ -34,6 +39,57 @@ def _sad(src_y, cand_y):
 def _mad(src, cand):
     m = [(s - c).abs().amax(dim=(1, 2)) for s, c in zip(src, cand)]
     return torch.maximum(m[0], torch.maximum(m[1], m[2])).to(I32)
+
+
+def accept_full(c_sad, c_mad, c_ssd, sad, mad, ssd, mad_thr):
+    """Full-pel acceptance of a candidate against the best so far
+    (motion.cpp:111-149; wavefront._eval_accept). Keeps the reference's
+    C-precedence quirk: the SAD-tie term needs c_sad < SAD_THRESHOLD, and
+    c_mad < mad_thr is OR-ed outside it."""
+    copy = (c_mad < mad) | ((c_mad == mad) & (c_ssd < ssd))
+    plain = (c_sad < sad) | \
+        ((c_sad == sad) & (c_ssd < ssd) & (c_sad < SAD_THRESHOLD)) | \
+        (c_mad < mad_thr)
+    return torch.where(mad < mad_thr, copy, plain)
+
+
+def accept_subpel(c_sad, c_mad, sad, mad, mad_thr):
+    """Sub-pel acceptance (motion.cpp:277-352): in the copy branch a
+    strictly lower MAD; otherwise a strictly lower SAD under the
+    threshold, or a MAD below mad_thr."""
+    return torch.where(mad < mad_thr, c_mad < mad,
+                       ((c_sad < sad) & (c_sad < SAD_THRESHOLD))
+                       | (c_mad < mad_thr))
+
+
+def fold_full(state, vals, ok, mad_thr):
+    """Folds K full-pel candidates into the search state in scan order.
+    state: (5, N) stacked [x, y, sad, mad, ssd]; vals: (5, N, K) the
+    candidates' same fields; ok: (N, K) whether each may be taken."""
+    for k in range(vals.shape[2]):
+        c = vals[:, :, k]
+        acc = ok[:, k] & accept_full(c[2], c[3], c[4], state[2], state[3],
+                                     state[4], mad_thr)
+        state = torch.where(acc, c, state)
+    return state
+
+
+def fold_subpel(sad, mad, cands, mad_thr):
+    """Folds the sub-pel candidates in the reference's order (SP_DIRS,
+    half before quarter). cands yields (ok, amount, sp_index, c_sad,
+    c_mad) per candidate. Returns (sad, mad, sp_pred, sp_amount,
+    sp_index)."""
+    sp_pred = torch.zeros(sad.shape, dtype=torch.bool, device=sad.device)
+    sp_amount = torch.zeros_like(sp_pred)
+    sp_index = torch.zeros(sad.shape, dtype=I32, device=sad.device)
+    for ok, amount, idx, c_sad, c_mad in cands:
+        acc = ok & accept_subpel(c_sad, c_mad, sad, mad, mad_thr)
+        sp_pred = sp_pred | acc
+        sp_amount = torch.where(acc, amount, sp_amount)
+        sp_index = torch.where(acc, idx, sp_index)
+        sad = torch.where(acc, c_sad, sad)
+        mad = torch.where(acc, c_mad, mad)
+    return sad, mad, sp_pred, sp_amount, sp_index
 
 
 def _chroma_slice(win, cdx, cdy):
@@ -78,37 +134,144 @@ def inter_search(src, src_planes, ref_planes, ring, slot, px, py, quality,
     best_u = uwin[:, 1:9, 1:9]
     best_v = vwin[:, 1:9, 1:9]
 
+    def cands():
+        for di, dj, idx in SP_DIRS:
+            tmx, tmy = mx + di, my + dj
+            valid_sp = ((x0 + px + tmx >= 0) & (x0 + px + tmx <= width - MB)
+                        & (py + tmy >= 0) & (py + tmy <= height - MB)
+                        & ~frozen)
+            test_y = ywin[:, 1 + dj:1 + dj + MB, 1 + di:1 + di + MB]
+            # the chroma neighbour's shift depends on the parity of mx/my
+            cdx = ((mx + di) >> 1) - (mx >> 1)
+            cdy = ((my + dj) >> 1) - (my >> 1)
+            test_u = _chroma_slice(uwin, cdx, cdy)
+            test_v = _chroma_slice(vwin, cdx, cdy)
+            for amount, lerp in ((False, ops.lerp_half),
+                                 (True, ops.lerp_quarter)):
+                cy_ = lerp(best_y, test_y)
+                yield (valid_sp, amount, idx, _sad(src[0], cy_),
+                       _mad(src, (cy_, lerp(best_u, test_u),
+                                  lerp(best_v, test_v))))
+
+    sad_s, mad_s, sp_enabled, sp_amount, sp_index = fold_subpel(
+        best_sad, best_mad, cands(), mad_thr)
+
+    motion = (mx != 0) | (my != 0) | sp_enabled
+    return dict(sad=sad_s, mad=mad_s, motion_x=mx, motion_y=my,
+                is_motion=motion, is_copy=mad_s < mad_thr,
+                sp_pred=sp_enabled, sp_amount=sp_amount, sp_index=sp_index)
+
+
+# --------------------------------------------------------------------------
+# Order-exact search (conformance encode; counterpart of tpu/motion.py:30-236)
+
+INT32_MAX = 0x7FFFFFFF
+Y_PAD = 2 * DENSE_R      # max cumulative ring offset is +-31, sub-pel +-1
+C_PAD = DENSE_R + 1
+RING_STEPS = (16, 8, 4, 2, 1)
+
+
+def search_windows(ref_planes):
+    """Per-MB search windows of one reference frame: Y (N, 80, 80),
+    U/V (N, 42, 42), int32, zero outside the plane."""
+    y, u, v = ref_planes
+    return (extract.mb_windows(y.to(I32), MB, Y_PAD),
+            extract.mb_windows(u.to(I32), MB // 2, C_PAD),
+            extract.mb_windows(v.to(I32), MB // 2, C_PAD))
+
+
+def window_blocks(wins, mx, my):
+    """Candidate blocks at per-MB motion offset (mx, my) from the windows."""
+    wy, wu, wv = wins
+    return (extract.extract_blocks(wy, mx + Y_PAD, my + Y_PAD, MB),
+            extract.extract_blocks(wu, (mx >> 1) + C_PAD, (my >> 1) + C_PAD,
+                                   MB // 2),
+            extract.extract_blocks(wv, (mx >> 1) + C_PAD, (my >> 1) + C_PAD,
+                                   MB // 2))
+
+
+def window_blocks_multi(wins, mx, my):
+    """K candidates per MB at once: mx/my (N, K) -> (N, K, ...) blocks."""
+    wy, wu, wv = wins
+    return (extract.extract_blocks_multi(wy, mx + Y_PAD, my + Y_PAD, MB),
+            extract.extract_blocks_multi(wu, (mx >> 1) + C_PAD,
+                                         (my >> 1) + C_PAD, MB // 2),
+            extract.extract_blocks_multi(wv, (mx >> 1) + C_PAD,
+                                         (my >> 1) + C_PAD, MB // 2))
+
+
+def sad_k(src_y, cand_y):
+    return (src_y[:, None] - cand_y).abs().sum(dim=(2, 3), dtype=I32)
+
+
+def mad_k(src, cand):
+    m = [(s[:, None] - c).abs().amax(dim=(2, 3)) for s, c in zip(src, cand)]
+    return torch.maximum(m[0], torch.maximum(m[1], m[2])).to(I32)
+
+
+def merge_descs(a, b):
+    """classify_block merge (encode.cpp:36-54; wavefront._merge_descs):
+    copy status dominates, then strictly lower SAD; ties keep `a`."""
+    take = torch.where(a["is_copy"] != b["is_copy"], b["is_copy"],
+                       b["sad"] < a["sad"])
+    return {k: torch.where(take, b[k], a[k]) for k in a}
+
+
+def inter_search_exact(src, ref_planes, px, py, quality):
+    """The reference's inter search (motion.cpp:421-494) for every MB
+    against one reference frame, in its exact evaluation order: the
+    co-located early-out, 5 rings x 9 candidates from the frozen
+    ring-entry best, then 8 directions x {half, quarter} sub-pel.
+
+    src: (Y (N,16,16), U (N,8,8), V (N,8,8)) int32 source blocks;
+    ref_planes: (y, u, v) planes; px/py: (N,) MB pixel coordinates;
+    quality: int32 scalar tensor."""
+    height, width = ref_planes[0].shape
+    mad_thr = (quality >> 2) + 1
+    wins = search_windows(ref_planes)
     n = px.shape[0]
-    sad_s, mad_s = best_sad, best_mad
-    sp_enabled = torch.zeros(n, dtype=torch.bool, device=px.device)
-    sp_amount = torch.zeros_like(sp_enabled)
-    sp_index = torch.zeros(n, dtype=I32, device=px.device)
-    for di, dj, idx in SP_DIRS:
-        tmx, tmy = mx + di, my + dj
-        valid_sp = ((x0 + px + tmx >= 0) & (x0 + px + tmx <= width - MB) &
-                    (py + tmy >= 0) & (py + tmy <= height - MB) & ~frozen)
-        test_y = ywin[:, 1 + dj:1 + dj + MB, 1 + di:1 + di + MB]
-        # the chroma neighbour's shift depends on the parity of mx/my
-        cdx = ((mx + di) >> 1) - (mx >> 1)
-        cdy = ((my + dj) >> 1) - (my >> 1)
-        test_u = _chroma_slice(uwin, cdx, cdy)
-        test_v = _chroma_slice(vwin, cdx, cdy)
-        for amount, lerp in ((False, ops.lerp_half), (True, ops.lerp_quarter)):
-            cy_ = lerp(best_y, test_y)
-            c_sad = _sad(src[0], cy_)
-            c_mad = _mad(src, (cy_, lerp(best_u, test_u),
-                               lerp(best_v, test_v)))
-            copy_branch = mad_s < mad_thr
-            accept_copy = c_mad < mad_s
-            accept_plain = ((c_sad < sad_s) & (c_sad < SAD_THRESHOLD)) | \
-                (c_mad < mad_thr)
-            accept = valid_sp & torch.where(copy_branch, accept_copy,
-                                            accept_plain)
-            sp_enabled = sp_enabled | accept
-            sp_amount = torch.where(accept, amount, sp_amount)
-            sp_index = torch.where(accept, idx, sp_index)
-            sad_s = torch.where(accept, c_sad, sad_s)
-            mad_s = torch.where(accept, c_mad, mad_s)
+    zero = torch.zeros(n, dtype=I32, device=px.device)
+
+    colocated = window_blocks(wins, zero, zero)
+    co_sad = _sad(src[0], colocated[0])
+    co_mad = _mad(src, colocated)
+    frozen = co_mad < mad_thr
+
+    def in_bounds(cx, cy):
+        gx, gy = px[:, None] + cx, py[:, None] + cy
+        return (gx >= 0) & (gx <= width - MB) & (gy >= 0) & \
+            (gy <= height - MB)
+
+    # best position, then sad, mad, ssd: one stacked state, so each
+    # accepted candidate is one select
+    state = torch.stack([zero, zero, co_sad, co_mad,
+                         torch.full_like(zero, INT32_MAX)])
+    for step in RING_STEPS:
+        offs = torch.tensor([(i, j) for j in (-step, 0, step)
+                             for i in (-step, 0, step)], dtype=I32,
+                            device=px.device)
+        cx = state[0][:, None] + offs[:, 0]    # frozen ring base (N, 9)
+        cy = state[1][:, None] + offs[:, 1]
+        ok = in_bounds(cx, cy) & ~frozen[:, None]
+        cand = window_blocks_multi(wins, cx, cy)
+        vals = torch.stack([cx, cy, sad_k(src[0], cand[0]), mad_k(src, cand),
+                            cx * cx + cy * cy])
+        state = fold_full(state, vals, ok, mad_thr)
+    mx, my = state[0], state[1]
+    best = window_blocks(wins, mx, my)
+
+    def cands():
+        for di, dj, idx in SP_DIRS:
+            tx, ty = mx + di, my + dj
+            ok = in_bounds(tx[:, None], ty[:, None])[:, 0] & ~frozen
+            test = window_blocks(wins, tx, ty)
+            for amount, lerp in ((False, ops.lerp_half),
+                                 (True, ops.lerp_quarter)):
+                cand = tuple(lerp(b, t) for b, t in zip(best, test))
+                yield ok, amount, idx, _sad(src[0], cand[0]), _mad(src, cand)
+
+    sad_s, mad_s, sp_enabled, sp_amount, sp_index = fold_subpel(
+        state[2], state[3], cands(), mad_thr)
 
     motion = (mx != 0) | (my != 0) | sp_enabled
     return dict(sad=sad_s, mad=mad_s, motion_x=mx, motion_y=my,

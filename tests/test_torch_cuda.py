@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA kernels K1-K4 against their plain
-versions, and the whole encoder on the card against the CPU. Each test is
+"""Card-only tests of the port: the CUDA kernels K1-K6 (K4 at both pad
+sets) against their plain versions, and the fast-mode and conformance
+encoders on the card against the CPU. Each test is
 marked `cuda` and skips without a CUDA card. The file imports neither jax
 nor cairo_tpu, so it runs on a machine without them:
 
@@ -10,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from cairo_tpu_torch.gpu import api, cuda_motion, cuda_pred
+from cairo_tpu_torch.gpu import (api, cuda_inter, cuda_motion, cuda_pred,
+                                 cuda_wave, ops, wavefront)
 from cairo_tpu_torch.synth import synth_frames
 
 RING = 4
@@ -83,3 +85,79 @@ def test_card_chunks_match_cpu(dev):
         assert a == b, f"frame {i}"
         np.testing.assert_array_equal(dec.decode(b), card.peek_destination())
     assert dec.host_frames == 0
+
+
+@pytest.mark.cuda
+def test_conformance_kernels_match_plain(dev):
+    """K4 at 33/17, K5 and K6 (an intra and an inter pass) at 160x96."""
+    rng = np.random.default_rng(8)
+    h, w = 96, 160
+    n = (h // 16) * (w // 16)
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    src_p = [_t(rng.integers(0, 256, s).astype(np.int32)).to(dev)
+             for s in shapes]
+    ring = []
+    for p in src_p:   # slots 0-2 shifted copies, slot 3 with overshoot
+        slots = [torch.roll(p, (2 * k, -3 * k), (0, 1)) for k in range(3)]
+        slots.append(p + _t(rng.integers(-300, 300, p.shape)).to(dev))
+        ring.append(torch.stack(slots).to(torch.int16).contiguous())
+    src = tuple(ops.plane_to_blocks(p, s).contiguous()
+                for p, s in zip(src_p, (16, 8, 8)))
+
+    mx = _t(rng.integers(-40, 41, n).astype(np.int32)).to(dev)
+    my = _t(rng.integers(-40, 41, n).astype(np.int32)).to(dev)
+    per_mb = [_t(a).to(dev) for a in (
+        rng.integers(0, 4, n).astype(np.int32), rng.random(n) < 0.5,
+        rng.random(n) < 0.5, rng.integers(0, 8, n).astype(np.int32),
+        rng.random(n) < 0.2)]
+    args = (*ring, per_mb[0], mx, my, *per_mb[1:], cuda_pred.WIDE_YPAD,
+            cuda_pred.WIDE_CPAD)
+    for g, wnt in zip(cuda_pred.pred_planes(*args),
+                      cuda_pred.pred_planes_plain(*args)):
+        _eq(g, wnt)
+
+    for level in (128, 96):     # flat: ties at SAD 0 and at SAD 8192
+        flat_src = tuple(torch.full_like(b, 128) for b in src)
+        flat = tuple(torch.full_like(r, level) for r in ring)
+        hdr = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+        got = cuda_inter.inter_search(flat_src, flat, hdr)
+        want = cuda_inter.inter_search_plain(flat_src, flat, hdr)
+        for k in cuda_inter.FIELDS:
+            _eq(got[k], want[k])
+
+    for quality in (4, 16, 29):
+        hdr = torch.tensor([3, quality], dtype=torch.int32, device=dev)
+        best = cuda_inter.inter_search(src, ring, hdr)
+        want = cuda_inter.inter_search_plain(src, ring, hdr)
+        for k in cuda_inter.FIELDS + ("is_intra",):
+            _eq(best[k], want[k])
+        state = dict(ring_y=ring[0], ring_u=ring[1], ring_v=ring[2])
+        pred = wavefront.wide_gather_pred(
+            state, hdr[0], best["target"], best["motion_x"],
+            best["motion_y"], best["sp_pred"], best["sp_amount"],
+            best["sp_index"], torch.zeros_like(best["is_intra"]))
+        self_sad = src[0].abs().sum(dim=(1, 2), dtype=torch.int32)
+        cur = tuple(p[3] for p in ring)
+        for inter in (None, (best, pred)):
+            ib, ip = inter if inter else (None, None)
+            got = cuda_wave.wave_pass(src, self_sad, ib, ip, *cur, hdr[1],
+                                      is_inter=inter is not None)
+            want = cuda_wave.wave_pass_plain(src, self_sad, ib, ip, *cur,
+                                             hdr[1],
+                                             is_inter=inter is not None)
+            for g, wnt in zip(got[:3] + got[4], want[:3] + want[4]):
+                _eq(g, wnt)
+            for k in cuda_wave.DESC_FIELDS:
+                _eq(got[3][k], want[3][k])
+
+
+@pytest.mark.cuda
+def test_conformance_card_chunks_match_cpu(dev):
+    frames = synth_frames(120, 72, 3, seed=5)
+    for quality in (4, 29):
+        cpu = api.ConformanceGpuEncoder(device="cpu")
+        card = api.ConformanceGpuEncoder(device=dev)
+        for enc in (cpu, card):
+            enc.set_quality(quality)
+        for i, f in enumerate(frames):
+            assert cpu.encode(f) == card.encode(f), f"q{quality} frame {i}"

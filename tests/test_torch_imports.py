@@ -1,7 +1,8 @@
 """The port stands alone: nothing under src/cairo_tpu_torch/, and not
-chip_smoke.py, imports jax or cairo_tpu; it imports and runs with both
-blocked; no CUDA source includes a PyTorch header and nothing builds with
-torch's extension loader; chip_smoke.py fails fast without a card."""
+chip_smoke.py, imports jax or cairo_tpu; it imports every module and runs
+both encoders and the decoder with both blocked; no CUDA source includes
+a PyTorch header and nothing builds with torch's extension loader;
+chip_smoke.py fails fast without a card."""
 
 import ast
 import os
@@ -39,7 +40,7 @@ def test_no_jax_or_reference_package_imports(path):
 
 
 def test_sources_bind_without_torch_headers():
-    for src in list((PKG / "gpu" / "csrc").glob("*.cu")):
+    for src in sorted((PKG / "gpu" / "csrc").glob("*.cu*")):
         text = src.read_text()
         for needle in ("torch/", "ATen", "c10/", "pybind11"):
             assert needle not in text, f"{src.name} includes {needle}"
@@ -51,7 +52,8 @@ def test_sources_bind_without_torch_headers():
 
 def test_imports_and_runs_with_jax_blocked(tmp_path):
     """A fresh interpreter with jax and cairo_tpu unimportable imports
-    every port module and encodes + decodes two frames on the CPU."""
+    every port module (the conformance path's too) and encodes + decodes
+    two frames with each encoder on the CPU."""
     mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
                   for p in PKG.rglob("*.py") if p.name != "__init__.py")
     code = f"""
@@ -63,12 +65,15 @@ import importlib
 for m in {mods!r}:
     importlib.import_module(m)
 import numpy as np
-from cairo_tpu_torch import GpuDecoder, GpuEncoder
+from cairo_tpu_torch import ConformanceGpuEncoder, GpuDecoder, GpuEncoder
 from cairo_tpu_torch.synth import synth_frames
 enc, dec = GpuEncoder(device="cpu"), GpuDecoder(device="cpu")
 for f in synth_frames(48, 32, 2):
     rgb = dec.decode(enc.encode(f))
     assert np.array_equal(rgb, enc.peek_destination())
+cenc, cdec = ConformanceGpuEncoder(device="cpu"), GpuDecoder(device="cpu")
+for f in synth_frames(48, 32, 2):
+    cdec.decode(cenc.encode(f))
 assert "jax" not in [m.split(".")[0] for m in sys.modules
                      if sys.modules[m] is not None]
 print("ok")
