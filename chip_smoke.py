@@ -27,12 +27,17 @@ Phases, one line each with the elapsed seconds:
      content, on flat planes that force ties (at SAD 0 and at the SAD
      threshold the reference's C-precedence quirk tests) and with overshoot
      beyond 0..255, and K6 on one intra and one inter wave pass fed the
-     same K5 output; and what K6's 321 launches cost with an empty kernel;
+     same K5 output, each run twice with identical outputs (an ordering
+     race between its pipelined rows would show); K2's and K6's device
+     time from a torch.profiler trace that may hold no more than one
+     launch of the kernel per call, K6's time per step of its 321-MB dependency chain,
+     and the registers and spills of K2 and K6 from the build's ptxas log
+     (kept beside the library, so a cached build reports them too);
   5. conformance path: ConformanceGpuEncoder over 1 intra + 2 inter
      synthetic 1920x1080 frames at q16; each chunk decoded by GpuDecoder
      (the native sequential C++ decoder takes these intra-motion frames)
      must equal the encoder's reconstruction, and K4 at 33/17, K5 and K6
-     must each have been launched;
+     must each have been launched, K6 once per frame;
   6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
      give byte-identical chunks with device="cpu" and on the card.
 The line before the last is a JSON object with each kernel's launches (K4
@@ -104,6 +109,34 @@ def cuda_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
+def device_ms(torch, fn, kernel, reps=10):
+    """Mean device time in ms of one launch of the kernel named `kernel`
+    over `reps` calls of fn(), from a torch.profiler trace (the event
+    times above also hold the wrapper's host work). Fails unless the trace
+    holds some launch of it and no more than one per call: a trace may
+    miss launches (it once held 8 of 10), but it holds none that did not
+    happen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and kernel in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            launches += e.count
+    if not 0 < launches <= reps:
+        fail(f"{kernel}: {launches} launches on the device in {reps} calls "
+             f"(one each expected)")
+    return total / launches / 1e3
+
+
 def compare(torch, name, got, want):
     """Exact equality of two tensors or tuples of tensors; returns the
     largest absolute difference (0)."""
@@ -122,6 +155,24 @@ def compare(torch, name, got, want):
                  f"(max abs err {e} at flat index {idx})")
         err = max(err, e)
     return err
+
+
+def ptxas_usage(build_log):
+    """Registers and spills per kernel from `nvcc -Xptxas -v` output:
+    {short kernel name: "N registers, S bytes spill stores, L bytes spill
+    loads"}."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in PORT_KERNELS if k in line), None)
+            spill = "spills not reported"
+        elif name and "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out[name] = f"{regs}, {spill}"
+            name = None
+    return out
 
 
 def phase_kernels(torch, np, gpu):
@@ -166,6 +217,10 @@ def phase_kernels(torch, np, gpu):
     checker = t((np.indices((H, W)).sum(0) % 2) * 40 + 100, torch.int16)
     checker_c = t((np.indices((H // 2, W // 2)).sum(0) % 2) * 40 + 100,
                   torch.int16)
+    # references over the whole int16 range: |src - ref| up to 33023, the
+    # range K2's float arithmetic must hold exactly
+    full_y = t(rng.integers(-32768, 32768, (H, W)), torch.int16)
+    full_c = t(rng.integers(-32768, 32768, (H // 2, W // 2)), torch.int16)
     cases = [
         ("random", (y0, u0, v0), (ring_y[2], ring_u[2], ring_v[2]), 0, W),
         ("copy shift", (shift_y + noise, shift_u, shift_v),
@@ -177,6 +232,7 @@ def phase_kernels(torch, np, gpu):
          0, W),
         ("tile x0", (y0, u0, v0), (ring_y[1], ring_u[1], ring_v[1]), 64,
          W + 160),
+        ("int16 range", (y0, u0, v0), (full_y, full_c, full_c), 0, W),
     ]
     k1_err = k2_err = 0
     for label, (sy, su, sv), (ry, ru, rv), x0, width in cases:
@@ -205,6 +261,8 @@ def phase_kernels(torch, np, gpu):
     recs["K2"] = dict(
         ms=cuda_ms(torch, lambda: cm.dense_select(src_y, ref_y, cmax, 0, W,
                                                   H, thr), 10),
+        device_ms=device_ms(torch, lambda: cm.dense_select(
+            src_y, ref_y, cmax, 0, W, H, thr), "dense_select_kernel"),
         plain_ms=cuda_ms(torch, lambda: cm.dense_select_plain(
             src_y, ref_y, cmax, 0, W, H, thr), 3),
         bytes=src_y.numel() * 4 + ref_y.numel() * 2 + cmax.numel() * 4
@@ -368,31 +426,38 @@ def phase_kernels_conformance(torch, np, gpu, H=1088, W=1920):
     cur = tuple(p[3] for p in ring5)
     k6_err = 0
     plain_s = {}
+
+    def flat_out(o):
+        return (*o[:3], *(o[3][k] for k in cw.DESC_FIELDS), *o[4])
+
     for label, inter in (("intra", None), ("inter", (best, pred))):
         kw = dict(is_inter=inter is not None)
         ib, ip = inter if inter else (None, None)
         got = cw.wave_pass(src, self_sad, ib, ip, *cur, hdr[1], **kw)
+        again = cw.wave_pass(src, self_sad, ib, ip, *cur, hdr[1], **kw)
         torch.cuda.synchronize()
+        compare(torch, f"K6 wave_pass ({label}, second run)",
+                flat_out(again), flat_out(got))
         t0 = time.perf_counter()
         want = cw.wave_pass_plain(src, self_sad, ib, ip, *cur, hdr[1], **kw)
         torch.cuda.synchronize()
         plain_s[label] = time.perf_counter() - t0
-
-        def flat_out(o):
-            return (*o[:3], *(o[3][k] for k in cw.DESC_FIELDS), *o[4])
-
         k6_err = max(k6_err, compare(torch, f"K6 wave_pass ({label})",
                                      flat_out(got), flat_out(want)))
-    log(f"K6: equal to the plain version on an intra and an inter pass at "
-        f"{W}x{H} (plain {plain_s['intra']:.1f} s and "
+    log(f"K6: two runs identical and equal to the plain version on an intra "
+        f"and an inter pass at {W}x{H} (plain {plain_s['intra']:.1f} s and "
         f"{plain_s['inter']:.1f} s)")
     ib, ip = best, pred
     recs["K6"] = dict(
         ms=cuda_ms(torch, lambda: cw.wave_pass(src, self_sad, ib, ip, *cur,
                                                hdr[1], is_inter=True), 10),
+        device_ms=device_ms(torch, lambda: cw.wave_pass(
+            src, self_sad, ib, ip, *cur, hdr[1], is_inter=True),
+            "wave_kernel"),
         plain_ms=cuda_ms(torch, lambda: cw.wave_pass_plain(
             src, self_sad, ib, ip, *cur, hdr[1], is_inter=True), 3),
-        floor_ms=cuda_ms(torch, lambda: cw.launch_floor(H, W, dev), 10),
+        # the longest chain of dependent MBs: wb + 3 (hb - 1) steps
+        steps=wb + cw.SKEW * (hb - 1),
         # source and prediction blocks, self-SAD, K5's nine fields, the
         # current slot read (int16) and the reconstruction written
         # (int32), eleven int32 fields and int16 coefficient blocks out
@@ -412,7 +477,7 @@ def phase_conformance(torch, np, gpu):
     api = gpu["api"]
     frames = synth_frames(1920, 1080, 3, seed=SEED % 991)
     counters = (gpu["cuda_pred"].LAUNCHES, gpu["cuda_inter"].LAUNCHES,
-                gpu["cuda_wave"].LAUNCHES, gpu["cuda_wave"].CALLS)
+                gpu["cuda_wave"].LAUNCHES)
     for c in counters:
         for k in c:
             c[k] = 0
@@ -434,7 +499,9 @@ def phase_conformance(torch, np, gpu):
     launches = {"pred_planes_wide": counters[0]["pred_planes_wide"],
                 "inter_search": counters[1]["inter_search"],
                 "wave_pass": counters[2]["wave_pass"]}
-    calls = counters[3]["wave_pass"]
+    if launches["wave_pass"] != len(frames):
+        fail(f"conformance path: {launches['wave_pass']} K6 launches for "
+             f"{len(frames)} frames (one wave pass each expected)")
     dec = api.GpuDecoder()
     for i, (c, r) in enumerate(zip(chunks, recons)):
         if not np.array_equal(dec.decode(c), r):
@@ -447,7 +514,6 @@ def phase_conformance(torch, np, gpu):
                          for r, f in zip(recons, frames)]))
     summary = dict(
         frames=len(frames), host_frames=dec.host_frames,
-        wave_pass_calls=calls,
         inter_encode_fps=(len(frames) - 1) / sum(enc_s[1:]),
         encode_ms=[round(s * 1e3, 1) for s in enc_s],
         psnr_db=10 * np.log10(255.0 ** 2 / max(1e-9, mse)),
@@ -716,7 +782,7 @@ def main():
     gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred,
                cuda_inter=cuda_inter, cuda_wave=cuda_wave, ops=ops,
                wavefront=wavefront)
-    secs = _build.build_all(verbose=True)
+    secs = _build.build_all()
     log(f"phase 1: built kernels in {secs['kernels_s']:.1f}s and the native "
         f"library in {secs['native_s']:.1f}s")
     log("kernels: K1 chroma_max_maps, K2 dense_select, K3 gather_windows, "
@@ -728,8 +794,10 @@ def main():
 
     recs = phase_kernels(torch, np, gpu)
     for k, r in recs.items():
-        log(f"phase 2: {k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms) "
-            f"on {smi}")
+        dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
+            else ""
+        log(f"phase 2: {k} {r['ms']:.3f} ms{dev} (plain {r['plain_ms']:.3f} "
+            f"ms) on {smi}")
 
     launches, summary = phase_main(torch, np, gpu)
     log(f"phase 3: 1920x1080 q16, {summary['frames']} frames on {smi}: "
@@ -747,10 +815,17 @@ def main():
     recs.update(phase_kernels_conformance(torch, np, gpu))
     for k in ("K4w", "K5", "K6"):
         r = recs[k]
-        log(f"phase 2b: {k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms) "
-            f"on {smi}")
-    log(f"phase 2b: K6's launches with an empty kernel: "
-        f"{recs['K6']['floor_ms']:.3f} ms on {smi}")
+        dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
+            else ""
+        log(f"phase 2b: {k} {r['ms']:.3f} ms{dev} (plain {r['plain_ms']:.3f} "
+            f"ms) on {smi}")
+    log(f"phase 2b: K6 {recs['K6']['ms'] / recs['K6']['steps'] * 1e3:.2f} "
+        f"us per step of its {recs['K6']['steps']}-MB chain on {smi}")
+    usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
+    for kname in ("dense_select_kernel", "wave_kernel"):
+        if kname not in usage:
+            fail(f"ptxas reported nothing for {kname}")
+        log(f"phase 2b: {kname}: {usage[kname]}")
 
     claunches, csum = phase_conformance(torch, np, gpu)
     launches.update(claunches)
@@ -758,8 +833,7 @@ def main():
         f"on {smi}: inter frames {csum['inter_encode_fps']:.2f} fps; psnr "
         f"{csum['psnr_db']:.2f} dB, {csum['kbits_per_frame']:.1f} "
         f"kbit/frame; encode ms {csum['encode_ms']}; stage ms "
-        f"{csum['stage_ms']}; launches {claunches} in "
-        f"{csum['wave_pass_calls']} wave_pass calls; decoder host frames "
+        f"{csum['stage_ms']}; launches {claunches}; decoder host frames "
         f"{csum['host_frames']}")
 
     phase_conformance_cpu_vs_card(gpu)

@@ -7,8 +7,10 @@ Two shared libraries with plain C interfaces, loaded with ctypes:
   * the host entropy coder and sequential decoder (native/*.cpp), g++.
 
 Each library lands in `<repo>/.torch_build/<sha256 of sources and
-flags>/`. A build writes to a private temporary name and `os.replace`s
-the finished file into place, so a build that is cut off leaves nothing
+flags>/`, beside `lib<name>.log`, the compiler's output (for the kernels,
+ptxas' registers and spills per kernel: `build_log`). A build writes to
+private temporary names and `os.replace`s the finished log and then the
+library into place, so a build that is cut off leaves nothing
 that a later run would wait on or load, and concurrent builds (test
 workers) never see a half-written library. No PyTorch header is compiled
 and no lock file is taken.
@@ -35,7 +37,7 @@ CSRC_HEADERS = sorted((_PKG / "gpu" / "csrc").glob("*.cuh"))
 NATIVE_SRC = [_PKG / "native" / "entropy.cpp", _PKG / "native" / "decoder.cpp"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 
 _lock = threading.Lock()
@@ -71,18 +73,17 @@ def nvcc_path() -> str:
 
 
 def _build_native(out: Path):
-    _run(["g++", *GXX_FLAGS, "-o", str(out), *map(str, NATIVE_SRC)])
+    return _run(["g++", *GXX_FLAGS, "-o", str(out), *map(str, NATIVE_SRC)])
 
 
-def _build_kernels(out: Path, verbose: bool = False):
+def _build_kernels(out: Path):
     nvcc = nvcc_path()
     tmpdir = Path(tempfile.mkdtemp(prefix="obj.", dir=out.parent))
     try:
         objs = [tmpdir / (s.stem + ".o") for s in CSRC]
-        extra = ["-Xptxas", "-v"] if verbose else []
         with ThreadPoolExecutor(len(CSRC)) as pool:
             logs = list(pool.map(
-                lambda so: _run([nvcc, *NVCC_FLAGS, *extra, "-c",
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-c",
                                  str(so[0]), "-o", str(so[1])]),
                 zip(CSRC, objs)))
         _run([nvcc, "-shared", "-o", str(out), *map(str, objs)])
@@ -91,24 +92,36 @@ def _build_kernels(out: Path, verbose: bool = False):
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
-def _ensure(name: str, sources, flags, build_fn, **kw) -> Path:
-    """Path of the built library `name`, building it if it is missing."""
+def _ensure(name: str, sources, flags, build_fn) -> Path:
+    """Path of the built library `name`, building it (and its log) if it
+    is missing."""
     final = BUILD_ROOT / _digest(sources, flags) / f"lib{name}.so"
     if final.exists():
         return final
     final.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=f".lib{name}.", suffix=".so.tmp",
-                               dir=final.parent)
-    os.close(fd)
+    tmps = []
     try:
-        log = build_fn(Path(tmp), **kw)
-        if log:
-            print(log, end="")
-        os.replace(tmp, final)
+        for suffix in (".so", ".log"):
+            fd, tmp = tempfile.mkstemp(prefix=f".lib{name}.",
+                                       suffix=suffix + ".tmp",
+                                       dir=final.parent)
+            os.close(fd)
+            tmps.append(tmp)
+        log = build_fn(Path(tmps[0]))
+        Path(tmps[1]).write_text(log or "")
+        os.replace(tmps[1], final.with_suffix(".log"))
+        os.replace(tmps[0], final)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for tmp in tmps:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return final
+
+
+def build_log(library: Path) -> str:
+    """The compiler output of the build that made `library`, whichever
+    process ran it."""
+    return library.with_suffix(".log").read_text()
 
 
 def native_library_path() -> Path:
@@ -116,9 +129,9 @@ def native_library_path() -> Path:
                    _build_native)
 
 
-def kernel_library_path(verbose: bool = False) -> Path:
+def kernel_library_path() -> Path:
     return _ensure("cairo_kernels", CSRC + CSRC_HEADERS,
-                   ["nvcc"] + NVCC_FLAGS, _build_kernels, verbose=verbose)
+                   ["nvcc"] + NVCC_FLAGS, _build_kernels)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -131,7 +144,7 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def build_all(verbose: bool = False) -> dict:
+def build_all() -> dict:
     """Builds both libraries side by side; returns seconds per library."""
     def timed(fn):
         t0 = time.perf_counter()
@@ -139,7 +152,7 @@ def build_all(verbose: bool = False) -> dict:
         return time.perf_counter() - t0
 
     with ThreadPoolExecutor(2) as pool:
-        k = pool.submit(timed, lambda: kernel_library_path(verbose))
+        k = pool.submit(timed, kernel_library_path)
         n = pool.submit(timed, native_library_path)
         return {"kernels_s": k.result(), "native_s": n.result()}
 

@@ -59,16 +59,19 @@ __device__ __forceinline__ int rounded_div_pos(int n, int d) {
   return trunc_div_pos(n < 0 ? sub_w(n, half) : add_w(n, half), d);
 }
 
-// ops.lerp_half: wrap16(trunc_div(round_out(a + b, 1), 2))
+// ops.lerp_half: wrap16(trunc_div(round_out(a + b, 1), 2)) for int16
+// a, b: (t + 1) / 2 truncates as (t + 1) >> 1 for t >= 0, and
+// -((1 - t) / 2) truncated is t >> 1 for t < 0
 __device__ __forceinline__ int lerp_half(int a, int b) {
   const int t = a + b;
-  return wrap16(trunc_div_pos(t < 0 ? t - 1 : t + 1, 2));
+  return wrap16((t + 1 + (t >> 31)) >> 1);
 }
 
-// ops.lerp_quarter: wrap16(trunc_div(round_out(3a + b, 2), 4))
+// ops.lerp_quarter: wrap16(trunc_div(round_out(3a + b, 2), 4)) for int16
+// a, b: (t + 2) >> 2 for t >= 0 and (t + 1) >> 2 for t < 0
 __device__ __forceinline__ int lerp_quarter(int a, int b) {
   const int t = 3 * a + b;
-  return wrap16(trunc_div_pos(t < 0 ? t - 2 : t + 2, 4));
+  return wrap16((t + 2 + (t >> 31)) >> 2);
 }
 
 // sample of an (h, w) plane, zero outside it (the anchor's zero padding)
@@ -122,16 +125,41 @@ constexpr int SEARCH_THREADS = 256;
 __device__ __forceinline__ int dir_x(int d) { return (d + (d >= 4)) % 3 - 1; }
 __device__ __forceinline__ int dir_y(int d) { return (d + (d >= 4)) / 3 - 1; }
 
+// Column phase of a circular window (Windows<..., SLOTS>): the physical
+// column of window column 0, luma and chroma. A window that is not
+// circular ignores it.
+struct Phase {
+  int y = 0, c = 0;
+};
+
 // A macroblock's search windows in shared memory, int16: luma YW x YW
 // with the macroblock's own position at (YOX, YOY), chroma CW x CW with
 // it at (COX, COY). Pixel i of a 384-entry block is luma (16x16) for
 // i < 256, then U, then V (8x8 each). Offsets clamp to the window, as the
-// anchor's extract.extract_blocks clips.
-template <int YW, int YOX, int YOY, int CW, int COX, int COY>
+// anchor's extract.extract_blocks clips. A circular window (SLOTS > 0)
+// keeps its columns as a ring of SLOTS 16-column strips (chroma 8), window
+// column x at physical column (x + phase) mod (16 SLOTS), so that a block
+// walking a macroblock row replaces one strip per step instead of the
+// whole window, and can fill the next strip while the current window is
+// in use (K6); K5 loads whole windows and reads them with no phase.
+template <int YW, int YOX, int YOY, int CW, int COX, int COY, int SLOTS = 0>
 struct Windows {
-  int16_t y[YW * YW];
-  int16_t u[CW * CW];
-  int16_t v[CW * CW];
+  static constexpr int YS = SLOTS ? 16 * SLOTS : YW;   // row strides
+  static constexpr int CS = SLOTS ? 8 * SLOTS : CW;
+  int16_t y[YW * YS];
+  int16_t u[CW * CS];
+  int16_t v[CW * CS];
+
+  // physical column of window column x (x + ph < 2 N) in a row of N
+  template <int N>
+  static __device__ __forceinline__ int col(int x, int ph) {
+    if constexpr (SLOTS > 0) {
+      x += ph;
+      return x >= N ? x - N : x;
+    } else {
+      return x;
+    }
+  }
 
   // fills the windows around the macroblock at (px, py) of (h, w) planes
   // (chroma h/2 x w/2); reads outside a plane are zero
@@ -151,24 +179,26 @@ struct Windows {
 
   // luma pixel i (0..255) of the block at full-pel offset (dx, dy) from
   // the macroblock
-  __device__ __forceinline__ int luma(int dx, int dy, int i) const {
+  __device__ __forceinline__ int luma(int dx, int dy, int i,
+                                      Phase ph = {}) const {
     const int ox = clampi(dx + YOX, 0, YW - MB);
     const int oy = clampi(dy + YOY, 0, YW - MB);
-    return y[(oy + (i >> 4)) * YW + ox + (i & 15)];
+    return y[(oy + (i >> 4)) * YS + col<YS>(ox + (i & 15), ph.y)];
   }
 
   // chroma pixel j (0..63) of the U (or V) block at (dx, dy)
-  __device__ __forceinline__ int chroma(int dx, int dy, int j,
-                                        bool is_v) const {
+  __device__ __forceinline__ int chroma(int dx, int dy, int j, bool is_v,
+                                        Phase ph = {}) const {
     const int cx = clampi((dx >> 1) + COX, 0, CW - 8);
     const int cy = clampi((dy >> 1) + COY, 0, CW - 8);
-    return (is_v ? v : u)[(cy + (j >> 3)) * CW + cx + (j & 7)];
+    return (is_v ? v : u)[(cy + (j >> 3)) * CS + col<CS>(cx + (j & 7), ph.c)];
   }
 
   // pixel i of the 384-entry block at (dx, dy)
-  __device__ __forceinline__ int at(int dx, int dy, int i) const {
-    return i < 256 ? luma(dx, dy, i)
-                   : chroma(dx, dy, (i - 256) & 63, i >= 320);
+  __device__ __forceinline__ int at(int dx, int dy, int i,
+                                    Phase ph = {}) const {
+    return i < 256 ? luma(dx, dy, i, ph)
+                   : chroma(dx, dy, (i - 256) & 63, i >= 320, ph);
   }
 
   // this thread's luma and chroma pixels of the candidate at (dx, dy)
@@ -177,6 +207,34 @@ struct Windows {
     const int t = threadIdx.x;
     cy = luma(dx, dy, t);
     cc = t < 128 ? chroma(dx, dy, t & 63, t >= 64) : 0;
+  }
+
+  // The pixels of the 3 x 3 candidates (ex + (k % 3 - 1) s, ey +
+  // (k / 3 - 1) s), k < 9, that thread i of a 128-thread group owns: luma
+  // pixels i and i + 128 (ya, yb) and chroma pixel i (c; U below 64, V
+  // above). The candidates share three rows and three columns, so each
+  // address is computed once. With s = 1 around the best block these are
+  // the sub-pel neighbours: direction d is k = d + (d >= 4), the base k = 4.
+  __device__ __forceinline__ void ring_px(int ex, int ey, int s, int i,
+                                          Phase ph, int (&ya)[9],
+                                          int (&yb)[9], int (&c)[9]) const {
+    const int j = i & 63;
+    int yr[3], yc[3], cr[3], cc[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int dx = ex + (a - 1) * s, dy = ey + (a - 1) * s;
+      yc[a] = col<YS>(clampi(dx + YOX, 0, YW - MB) + (i & 15), ph.y);
+      yr[a] = (clampi(dy + YOY, 0, YW - MB) + (i >> 4)) * YS;
+      cc[a] = col<CS>(clampi((dx >> 1) + COX, 0, CW - 8) + (j & 7), ph.c);
+      cr[a] = (clampi((dy >> 1) + COY, 0, CW - 8) + (j >> 3)) * CS;
+    }
+    const int16_t* cp = i < 64 ? u : v;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      ya[k] = y[yr[k / 3] + yc[k % 3]];
+      yb[k] = y[yr[k / 3] + 8 * YS + yc[k % 3]];
+      c[k] = cp[cr[k / 3] + cc[k % 3]];
+    }
   }
 
   // this thread's pixels of the 16 sub-pel candidates around the block
@@ -223,20 +281,25 @@ __device__ __forceinline__ void cand_metrics(const int* src,
 // full-pel acceptance of a candidate against the best so far
 // (motion.cpp:111-149; motion.accept_full), with the reference's
 // C-precedence quirk: the SAD-tie term needs c_sad < SAD_THRESHOLD, and
-// c_mad < mad_thr is OR-ed outside it
+// c_mad < mad_thr is OR-ed outside it. Written without branches: it sits
+// on the serial fold of every search step.
 __device__ __forceinline__ bool eval_accept(int sad, int mad, int ssd,
                                             int c_sad, int c_mad, int c_ssd,
                                             int mad_thr) {
-  if (mad < mad_thr) return c_mad < mad || (c_mad == mad && c_ssd < ssd);
-  return c_sad < sad || (c_sad == sad && c_ssd < ssd && c_sad < SAD_THRESHOLD)
-         || c_mad < mad_thr;
+  const bool by_mad = (c_mad < mad) | ((c_mad == mad) & (c_ssd < ssd));
+  const bool by_sad = (c_sad < sad) |
+                      ((c_sad == sad) & (c_ssd < ssd) &
+                       (c_sad < SAD_THRESHOLD)) |
+                      (c_mad < mad_thr);
+  return mad < mad_thr ? by_mad : by_sad;
 }
 
 // sub-pel acceptance (motion.cpp:277-352; motion.accept_subpel)
 __device__ __forceinline__ bool subpel_accept(int sad, int mad, int c_sad,
                                               int c_mad, int mad_thr) {
-  if (mad < mad_thr) return c_mad < mad;
-  return (c_sad < sad && c_sad < SAD_THRESHOLD) || c_mad < mad_thr;
+  const bool by_sad = ((c_sad < sad) & (c_sad < SAD_THRESHOLD)) |
+                      (c_mad < mad_thr);
+  return mad < mad_thr ? c_mad < mad : by_sad;
 }
 
 // the block at offset (dx, dy) from the macroblock at (px, py) lies

@@ -149,7 +149,9 @@ def dense_select_plain(src_y, ref_y, cmax, x0, width, height, mad_thr):
 
 def dense_select(src_y, ref_y, cmax, x0, width, height, mad_thr):
     """Per-MB (mx, my, sad, mad, frozen) under the fast-mode policy.
-    src_y: (H, W) int32; ref_y: (H, W) int16; cmax from
+    src_y: (H, W) int32 with values in int16 range (source planes are
+    0..255; the kernel's float arithmetic is exact there); ref_y: (H, W)
+    int16; cmax from
     chroma_max_maps; x0: the tile's pixel origin; width/height: the frame
     the candidates must stay in; mad_thr: int32 scalar tensor."""
     if src_y.device.type == "cpu":
@@ -166,8 +168,7 @@ def dense_select(src_y, ref_y, cmax, x0, width, height, mad_thr):
     _build.check(cmax, "cmax", I32, (hb, wb, CNOFF))
     _build.check(thr, "mad_thr", I32, (1,))
     n = hb * wb
-    mx, my, sad, mad = (torch.empty(n, dtype=I32, device=dev)
-                        for _ in range(4))
+    mx, my, sad, mad = torch.empty((4, n), dtype=I32, device=dev).unbind(0)
     frozen = torch.empty(n, dtype=torch.bool, device=dev)
     fn = _build.kernel_fn("cairo_dense_select", "ppppiiiiipppppp")
     _build.launch(fn, dev, src_y.data_ptr(), ref_y.data_ptr(),

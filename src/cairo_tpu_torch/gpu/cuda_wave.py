@@ -3,9 +3,9 @@ its plain PyTorch version and the wave helpers that version is built from
 (counterparts of cairo_tpu/tpu/wavefront.py:55-370).
 
 Dispatch, one rule: a CPU tensor takes the plain version; a CUDA tensor
-launches the kernels of csrc/wave.cu or raises. One call of wave_pass
-launches one kernel per non-empty wave (321 at 1080p): LAUNCHES counts
-those kernel launches and CALLS the calls.
+launches the kernel of csrc/wave.cu or raises. One call of wave_pass
+launches the kernel once (one persistent launch for the whole pass), and
+LAUNCHES counts those launches.
 
   * wave_pass (K6) replaces pallas_wave.wave_pass (pallas_wave.py:1045);
     plain version: the XLA wave body of wavefront.conformance_encode_step
@@ -21,6 +21,7 @@ values for copy blocks (wavefront.conformance_encode_step).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -32,7 +33,17 @@ from .motion import INT32_MAX, SP_DIRS, fold_full, fold_subpel, mad_k, \
     merge_descs, sad_k
 
 MB = tables.MACROBLOCK_SIZE
-SKEW = 3
+# An MB's causal window: luma x in [px + WIN_X[0], px + WIN_X[1]) and y in
+# [py + WIN_Y[0], py + WIN_Y[1]) (chroma halved). Its reach right of the
+# MB, two MBs, sets the schedule: the plain version runs waves
+# w = bi + SKEW * bj, and the kernel walks rows, waiting before MB (bi, bj)
+# until row bj-1 has completed MB min(bi + LEAD, wb-1). The two are one
+# order: (bi + LEAD, bj - 1) lies in wave w - 1. The kernel holds the
+# same reach in MBs (wave.cu LEFT, RIGHT, UP, DOWN); wave_pass checks it.
+WIN_X = (-32, 48)
+WIN_Y = (-48, 32)
+LEAD = (WIN_X[1] - MB) // MB       # 2
+SKEW = LEAD + 1                    # 3
 YPAD = 48            # window reach: x in [-32, 48), y in [-48, 16)
 CPAD = 24
 I32 = torch.int32
@@ -46,7 +57,12 @@ INTRA_RINGS = [[(i, j) for j in (-32, -16, 0) for i in (-16, 0, 16)]] + [
     [(i, j) for j in (-s, 0, s) for i in (-s, 0, s)] for s in (8, 4, 2, 1)]
 
 LAUNCHES = {"wave_pass": 0}
-CALLS = {"wave_pass": 0}
+
+
+def window_reach():
+    """The causal window's reach in MBs: (left, right, up, down)."""
+    return (-WIN_X[0] // MB, WIN_X[1] // MB - 1, -WIN_Y[0] // MB,
+            WIN_Y[1] // MB - 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -217,6 +233,17 @@ def wave_pass_plain(src, self_sad, inter_best, inter_pred, cur_y, cur_u,
 
 
 @functools.lru_cache(maxsize=None)
+def _check_geometry():
+    """Raises unless the kernel was built for this module's window (its
+    reach in MBs, the right reach being the wait rule's LEAD)."""
+    got = (ctypes.c_int * 4)()
+    _build.kernel_fn("cairo_wave_geometry", "p")(ctypes.addressof(got))
+    if tuple(got) != window_reach() or window_reach()[1] != LEAD:
+        raise RuntimeError(f"wave.cu's window reach {tuple(got)} is not "
+                           f"cuda_wave's {window_reach()} (lead {LEAD})")
+
+
+@functools.lru_cache(maxsize=None)
 def _consts(device: str):
     """The transform and quantiser tables wave.cu reads: DCT basis, intra
     and inter matrices, luma and chroma DC scales for qp 0..31."""
@@ -242,6 +269,7 @@ def wave_pass(src, self_sad, inter_best, inter_pred, cur_y, cur_u, cur_v,
     h, w = cur_y.shape
     if h % MB or w % MB:
         raise ValueError("wave_pass: plane dims must be multiples of 16")
+    _check_geometry()
     dev = cur_y.device
     n = (h // MB) * (w // MB)
     _build.check(src[0], "src_y", I32, (n, MB, MB))
@@ -250,11 +278,14 @@ def wave_pass(src, self_sad, inter_best, inter_pred, cur_y, cur_u, cur_v,
     _build.check(self_sad, "self_sad", I32, (n,))
     q = quality.reshape(1)
     _build.check(q, "quality", I32, (1,))
-    rec = tuple(p.to(I32, copy=True).contiguous() for p in (cur_y, cur_u,
-                                                            cur_v))
-    for p, name, shape in zip(rec, ("cur_y", "cur_u", "cur_v"),
-                              ((h, w), (h // 2, w // 2), (h // 2, w // 2))):
-        _build.check(p, name, I32, shape)
+    # the frame as the kernel reads and updates it, int16 (ring values are
+    # int16); the kernel writes every MB of the int32 reconstruction
+    work = tuple(p.to(torch.int16, copy=True).contiguous()
+                 for p in (cur_y, cur_u, cur_v))
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    for p, name, shape in zip(work, ("cur_y", "cur_u", "cur_v"), shapes):
+        _build.check(p, name, torch.int16, shape)
+    rec = tuple(torch.empty(shape, dtype=I32, device=dev) for shape in shapes)
     if is_inter:
         inter = torch.stack([inter_best[k].to(I32)
                              for k in cuda_inter.FIELDS])
@@ -269,20 +300,15 @@ def wave_pass(src, self_sad, inter_best, inter_pred, cur_y, cur_u, cur_v,
             torch.empty((n, MB // 2, MB // 2), dtype=torch.int16, device=dev),
             torch.empty((n, MB // 2, MB // 2), dtype=torch.int16, device=dev))
     consts = _consts(str(dev))
-    fn = _build.kernel_fn("cairo_wave_pass", "pppppppppppppiiippppp")
+    # the row ticket, then the MBs completed per row
+    sync = torch.zeros(1 + h // MB, dtype=I32, device=dev)
+    fn = _build.kernel_fn("cairo_wave_pass", "ppppppppppppppppiiipppppp")
     _build.launch(fn, dev, *(t.data_ptr() for t in src), self_sad.data_ptr(),
                   inter.data_ptr(), *(t.data_ptr() for t in pred),
-                  *(t.data_ptr() for t in rec), q.data_ptr(),
+                  *(t.data_ptr() for t in rec),
+                  *(t.data_ptr() for t in work), q.data_ptr(),
                   consts.data_ptr(), h, w, int(bool(is_inter)),
-                  desc.data_ptr(), *(t.data_ptr() for t in coef))
-    CALLS["wave_pass"] += 1
-    LAUNCHES["wave_pass"] += len(wave_members(w // MB, h // MB))
+                  sync.data_ptr(), desc.data_ptr(),
+                  *(t.data_ptr() for t in coef))
+    LAUNCHES["wave_pass"] += 1
     return (*rec, dict(zip(DESC_FIELDS, desc.unbind(0))), coef)
-
-
-def launch_floor(h: int, w: int, device):
-    """Launches an empty kernel with wave_pass's sequence of grids at
-    geometry (h, w): the launch cost under K6's time, for measurement.
-    Not counted in LAUNCHES."""
-    fn = _build.kernel_fn("cairo_wave_launch_floor", "iip")
-    _build.launch(fn, torch.device(device), h, w)

@@ -161,3 +161,96 @@ def test_conformance_card_chunks_match_cpu(dev):
             enc.set_quality(quality)
         for i, f in enumerate(frames):
             assert cpu.encode(f) == card.encode(f), f"q{quality} frame {i}"
+
+
+def _k2_case(kind, h, w, rng):
+    """Source and reference planes for K2: `flat` (every offset ties, so
+    dist^2 and scan order decide), `period4` (a texture of period 4: ties
+    at many offsets), `int16` (references over the whole int16 range)."""
+    if kind == "flat":
+        src = np.full((h, w), 128)
+        ref = np.full((h, w), 128)
+    elif kind == "period4":
+        yy, xx = np.indices((h, w))
+        src = ((xx % 4) * 40 + (yy % 4) * 10 + 20)
+        ref = np.roll(src, (1, 1), (0, 1)) + rng.integers(0, 2, (h, w))
+    else:
+        src = rng.integers(0, 256, (h, w))
+        ref = rng.integers(-32768, 32768, (h, w))
+    return src.astype(np.int32), ref.astype(np.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "period4", "int16"])
+def test_dense_select_matches_plain(dev, kind):
+    """K2 against its plain version where ties decide and where |src -
+    ref| spans the range its float arithmetic must keep exact, at the
+    frame origin and at a tile origin (x0, width)."""
+    rng = np.random.default_rng(61)
+    h, w = 96, 192
+    src, ref = _k2_case(kind, h, w, rng)
+    src_y, ref_y = _t(src).to(dev), _t(ref).to(dev)
+    # flat chroma: the chroma map is 0 and the luma decides the MAD
+    cu = torch.full((h // 2, w // 2), 128, dtype=torch.int32, device=dev)
+    cmax = cuda_motion.chroma_max_maps(cu, cu, cu.to(torch.int16),
+                                       cu.to(torch.int16))
+    # no copy grade; copy grade (and co-located early-outs); all frozen
+    for thr in (0, 5, 1 << 20):
+        t_thr = torch.tensor(thr, dtype=torch.int32, device=dev)
+        for x0, width in ((0, w), (48, w + 112)):
+            got = cuda_motion.dense_select(src_y, ref_y, cmax, x0, width, h,
+                                           t_thr)
+            want = cuda_motion.dense_select_plain(src_y, ref_y, cmax, x0,
+                                                  width, h, t_thr)
+            for g, wnt in zip(got, want):
+                _eq(g, wnt)
+
+
+@pytest.mark.cuda
+def test_wave_pass_pipelined_rows(dev):
+    """K6 at 640x352 (40x22 MBs, many rows in flight at once), on an intra
+    and an inter pass, against its plain version; three runs must give
+    identical outputs, so an ordering race between rows would show."""
+    rng = np.random.default_rng(66)
+    h, w = 352, 640
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    src_p = [_t(rng.integers(0, 256, s).astype(np.int32)).to(dev)
+             for s in shapes]
+    ring = []
+    for p in src_p:   # slots 0-2 shifted copies, slot 3 with overshoot
+        slots = [torch.roll(p, (2 * k, -3 * k), (0, 1)) for k in range(3)]
+        slots.append(p + _t(rng.integers(-300, 300, p.shape)).to(dev))
+        ring.append(torch.stack(slots).to(torch.int16).contiguous())
+    src = tuple(ops.plane_to_blocks(p, s).contiguous()
+                for p, s in zip(src_p, (16, 8, 8)))
+    hdr = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    best = cuda_inter.inter_search(src, ring, hdr)
+    state = dict(ring_y=ring[0], ring_u=ring[1], ring_v=ring[2])
+    pred = wavefront.wide_gather_pred(
+        state, hdr[0], best["target"], best["motion_x"], best["motion_y"],
+        best["sp_pred"], best["sp_amount"], best["sp_index"],
+        torch.zeros_like(best["is_intra"]))
+    self_sad = src[0].abs().sum(dim=(1, 2), dtype=torch.int32)
+    cur = tuple(p[3] for p in ring)
+
+    def flat(o):
+        return [*o[:3], *(o[3][k] for k in cuda_wave.DESC_FIELDS), *o[4]]
+
+    for inter in (None, (best, pred)):
+        ib, ip = inter if inter else (None, None)
+        kw = dict(is_inter=inter is not None)
+        runs = [flat(cuda_wave.wave_pass(src, self_sad, ib, ip, *cur, hdr[1],
+                                         **kw)) for _ in range(3)]
+        want = flat(cuda_wave.wave_pass_plain(src, self_sad, ib, ip, *cur,
+                                              hdr[1], **kw))
+        for run in runs:
+            for g, wnt in zip(run, want):
+                _eq(g, wnt)
+
+
+@pytest.mark.cuda
+def test_wave_kernel_built_for_the_modules_window(dev):
+    """wave.cu's window reach (LEFT, RIGHT, UP, DOWN) is cuda_wave's
+    WIN_X / WIN_Y, its right reach the wait rule's LEAD."""
+    cuda_wave._check_geometry.cache_clear()
+    cuda_wave._check_geometry()

@@ -1,8 +1,8 @@
-"""The port stands alone: nothing under src/cairo_tpu_torch/, and not
-chip_smoke.py, imports jax or cairo_tpu; it imports every module and runs
-both encoders and the decoder with both blocked; no CUDA source includes
-a PyTorch header and nothing builds with torch's extension loader;
-chip_smoke.py fails fast without a card."""
+"""The port stands alone: nothing under src/cairo_tpu_torch/, and neither
+chip_smoke.py nor compare_trees.py, imports jax or cairo_tpu; it imports
+every module and runs both encoders and the decoder with both blocked; no
+CUDA source includes a PyTorch header and nothing builds with torch's
+extension loader; chip_smoke.py fails fast without a card."""
 
 import ast
 import os
@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "cairo_tpu")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "compare_trees.py"]
 
 
 def _imported_roots(path):
