@@ -12,8 +12,10 @@ Phases, one line each with the elapsed seconds:
      (g++) from the sources in the checkout;
   2. kernels: K1-K4 against their plain PyTorch versions at the 1080p
      shapes of the main path, plus edge cases (tile origin x0, copy-grade
-     shifts, flat planes that force ties, recon overshoot beyond 0..255);
-     exact equality; CUDA-event times;
+     shifts, flat planes that force ties, recon overshoot beyond 0..255,
+     references over the whole int16 range); exact equality; CUDA-event
+     times, K3's for its luma and its chroma call, and K1's and K2's
+     device time from a torch.profiler trace;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
@@ -27,12 +29,13 @@ Phases, one line each with the elapsed seconds:
      content, on flat planes that force ties (at SAD 0 and at the SAD
      threshold the reference's C-precedence quirk tests) and with overshoot
      beyond 0..255, and K6 on one intra and one inter wave pass fed the
-     same K5 output, each run twice with identical outputs (an ordering
-     race between its pipelined rows would show); K2's and K6's device
-     time from a torch.profiler trace that may hold no more than one
-     launch of the kernel per call, K6's time per step of its 321-MB dependency chain,
-     and the registers and spills of K2 and K6 from the build's ptxas log
-     (kept beside the library, so a cached build reports them too);
+     same K5 output, K5 and K6 each run twice with identical outputs (an
+     ordering race between K6's pipelined rows would show); K5's and K6's
+     device time from a torch.profiler trace that may hold no more than
+     one launch of the kernel per call, K6's time per step of its 321-MB
+     dependency chain, and the registers and spills of K1, K2, K5 and K6
+     from the build's ptxas log (kept beside the library, so a cached
+     build reports them too);
   5. conformance path: ConformanceGpuEncoder over 1 intra + 2 inter
      synthetic 1920x1080 frames at q16; each chunk decoded by GpuDecoder
      (the native sequential C++ decoder takes these intra-motion frames)
@@ -109,32 +112,53 @@ def cuda_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def device_ms(torch, fn, kernel, reps=10):
+def device_ms(torch, fn, kernel, reps=10, traces=5):
     """Mean device time in ms of one launch of the kernel named `kernel`
     over `reps` calls of fn(), from a torch.profiler trace (the event
-    times above also hold the wrapper's host work). Fails unless the trace
-    holds some launch of it and no more than one per call: a trace may
-    miss launches (it once held 8 of 10), but it holds none that did not
-    happen."""
+    times above also hold the wrapper's host work). The trace records
+    after a warm-up step, as the profiler's schedule has it: a trace that
+    records from its first call loses that call's kernels. A trace may
+    still come back without any launch of the kernel (the first trace of
+    phase 2b did so in some runs, while the next one held all of them),
+    but it holds none that did not happen: such a trace is taken again,
+    up to `traces` times, and the run fails if none holds a launch or one
+    holds more than one a call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for attempt in range(1, traces + 1):
+        ready = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: ready.append(
+                         p.key_averages())) as prof:
             fn()
-        torch.cuda.synchronize()
-    total, launches = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and kernel in e.key:
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            launches += e.count
-    if not 0 < launches <= reps:
-        fail(f"{kernel}: {launches} launches on the device in {reps} calls "
-             f"(one each expected)")
-    return total / launches / 1e3
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        total, launches, others = 0.0, 0, 0
+        for e in (ready[0] if ready else ()):
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if kernel in e.key:
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                launches += e.count
+            else:
+                others += e.count
+        if launches > reps:
+            break
+        if launches:
+            return total / launches / 1e3
+        log(f"{kernel}: trace {attempt} of {traces} holds no launch of it "
+            f"({others} other device events)")
+    fail(f"{kernel}: {launches} launches on the device in {reps} calls "
+         f"(one each expected)")
 
 
 def compare(torch, name, got, want):
@@ -254,6 +278,8 @@ def phase_kernels(torch, np, gpu):
     recs["K1"] = dict(
         ms=cuda_ms(torch, lambda: cm.chroma_max_maps(src_u, src_v, ref_u,
                                                      ref_v), 10),
+        device_ms=device_ms(torch, lambda: cm.chroma_max_maps(
+            src_u, src_v, ref_u, ref_v), "chroma_max_kernel"),
         plain_ms=cuda_ms(torch, lambda: cm.chroma_max_maps_plain(
             src_u, src_v, ref_u, ref_v), 3),
         bytes=2 * src_u.numel() * 4 + 2 * ref_u.numel() * 2 + cmax.numel() * 4,
@@ -285,12 +311,18 @@ def phase_kernels(torch, np, gpu):
                                                      blk, pad), label)
         k3_err = max(k3_err, e)
     log("K3: equal to the plain version (luma, chroma, clamped offsets)")
+    # the luma call (18 x 18 windows, pad 17) and a chroma call (10 x 10,
+    # pad 9; two of them and one luma call per reference of a fast inter
+    # frame): one slot's plane read, the offsets, the windows written
     recs["K3"] = dict(
         ms=cuda_ms(torch, lambda: cp.gather_windows(ring_y, slot, mx, my, 18,
                                                     17), 10),
         plain_ms=cuda_ms(torch, lambda: cp.gather_windows_plain(
             ring_y, slot, mx, my, 18, 17), 3),
         bytes=H * W * 2 + 2 * n * 4 + n * 18 * 18 * 4, ops=0,
+        chroma_ms=cuda_ms(torch, lambda: cp.gather_windows(
+            ring_u, slot, mx >> 1, my >> 1, 10, 9), 10),
+        chroma_bytes=H * W // 4 * 2 + 2 * n * 4 + n * 10 * 10 * 4,
         max_abs_err=k3_err)
 
     # ---- K4: every slot, sub-pel both amounts, intra zeroing
@@ -402,18 +434,39 @@ def phase_kernels_conformance(torch, np, gpu, H=1088, W=1920):
             torch, f"K5 inter_search ({label})",
             tuple(got[k].to(torch.int32) for k in ci.FIELDS),
             tuple(want[k].to(torch.int32) for k in ci.FIELDS)))
-    log("K5: equal to the plain version on " +
-        ", ".join(c[0] for c in cases))
     ring5 = cases[0][2]
+    again = ci.inter_search(src, ring5, hdr)
+    first = ci.inter_search(src, ring5, hdr)
+    torch.cuda.synchronize()
+    compare(torch, "K5 inter_search (shifted, second run)",
+            tuple(again[k].to(torch.int32) for k in ci.FIELDS),
+            tuple(first[k].to(torch.int32) for k in ci.FIELDS))
+    log("K5: equal to the plain version on " +
+        ", ".join(c[0] for c in cases) + "; two runs identical")
+    # the searches the timed input needs in full: a co-located MAD under
+    # the threshold freezes the MB, and the search stops there
+    thr = (int(hdr[1]) >> 2) + 1
+    frozen = 0
+    for off in range(1, 4):
+        co = [ops.plane_to_blocks(p[(int(hdr[0]) - off) % 4].to(torch.int32),
+                                  b) for p, b in zip(ring5, (16, 8, 8))]
+        mad = torch.stack([(a - c).abs().amax(dim=(1, 2))
+                           for a, c in zip(src, co)]).amax(0)
+        frozen += int((mad < thr).sum())
     recs["K5"] = dict(
         ms=cuda_ms(torch, lambda: ci.inter_search(src, ring5, hdr), 10),
+        device_ms=device_ms(torch, lambda: ci.inter_search(src, ring5, hdr),
+                            "inter_search_kernel"),
         plain_ms=cuda_ms(torch, lambda: ci.inter_search_plain(src, ring5,
                                                               hdr), 3),
+        frozen=frozen / (3 * n),
         # source blocks, three reference slots, nine int32 fields out
         bytes=n * 384 * 4 + 3 * H * W * 3 // 2 * 2 + 9 * n * 4,
-        # per MB and reference: the co-located candidate, 5 rings of 9
-        # and 16 sub-pel blends, 384 abs-diffs each
-        ops=n * 3 * 62 * 384, max_abs_err=k5_err)
+        # per MB and reference the co-located candidate and, unless it
+        # freezes the MB, 5 rings of 8 (each ring's centre is the
+        # ring-entry best, whose metrics are known) and 16 sub-pel blends:
+        # 384 abs-diffs each
+        ops=(3 * n + (3 * n - frozen) * 56) * 384, max_abs_err=k5_err)
 
     # ---- K6: an intra and an inter pass over the current slot (slot 3)
     self_sad = src[0].abs().sum(dim=(1, 2), dtype=torch.int32)
@@ -798,6 +851,9 @@ def main():
             else ""
         log(f"phase 2: {k} {r['ms']:.3f} ms{dev} (plain {r['plain_ms']:.3f} "
             f"ms) on {smi}")
+    log(f"phase 2: K3 chroma call {recs['K3']['chroma_ms']:.3f} ms, bound "
+        f"{recs['K3']['chroma_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"(bytes) on {smi}")
 
     launches, summary = phase_main(torch, np, gpu)
     log(f"phase 3: 1920x1080 q16, {summary['frames']} frames on {smi}: "
@@ -821,8 +877,11 @@ def main():
             f"ms) on {smi}")
     log(f"phase 2b: K6 {recs['K6']['ms'] / recs['K6']['steps'] * 1e3:.2f} "
         f"us per step of its {recs['K6']['steps']}-MB chain on {smi}")
+    log(f"phase 2b: K5 timed input: {100 * recs['K5']['frozen']:.1f}% of the "
+        f"(MB, reference) searches frozen by the co-located candidate")
     usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
-    for kname in ("dense_select_kernel", "wave_kernel"):
+    for kname in ("chroma_max_kernel", "dense_select_kernel",
+                  "inter_search_kernel", "wave_kernel"):
         if kname not in usage:
             fail(f"ptxas reported nothing for {kname}")
         log(f"phase 2b: {kname}: {usage[kname]}")
@@ -867,6 +926,12 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None))
+        if "device_ms" in r:
+            kernels[-1]["device_ms"] = r["device_ms"]
+        if "chroma_ms" in r:    # K3's chroma call beside its luma call
+            kernels[-1].update(
+                chroma_ms=r["chroma_ms"],
+                chroma_bound_ms=r["chroma_bytes"] / HBM_BYTES_PER_S * 1e3)
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -199,8 +199,16 @@ def launch(fn, device, *args):
     if len(args) + 1 != len(fn.argtypes):  # ctypes would pass extras as int
         raise TypeError(f"{fn.__name__}: {len(args)} arguments and the "
                         f"stream for {len(fn.argtypes)} parameters")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    # the raw handle, as torch's generated kernels take it: building a
+    # torch.cuda.Stream and entering the device context cost some 6 and
+    # 4 us of host time a launch on the card
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")

@@ -3,8 +3,9 @@
 // arithmetic of gpu/ops.py exactly, int32 wrap included: where a torch
 // int32 op may wrap, the helper computes in uint32_t and casts back,
 // because signed overflow is undefined in CUDA C++. The search helpers
-// (windows, candidate metrics, acceptance rules) are the one copy of the
-// reference's motion-search arithmetic that K5 and K6 both run.
+// (acceptance rules, the frame test, sub-pel directions and blends) are
+// the one copy of the reference's motion-search rules that K5 and K6 both
+// run; Windows is K6's search window.
 
 #pragma once
 
@@ -82,43 +83,19 @@ __device__ __forceinline__ int pix(const T* p, int h, int w, int y, int x) {
              : 0;
 }
 
-// Block-wide sums and maxima of K values per thread, for a block of
-// NWARP full warps; the totals land in out_sum[k] / out_max[k] (shared).
-// scratch holds 2 * K * NWARP ints. Ends with a barrier.
-template <int K, int NWARP>
-__device__ __forceinline__ void block_sum_max(int (&s)[K], int (&m)[K],
-                                              int* scratch, int* out_sum,
-                                              int* out_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const unsigned su = __reduce_add_sync(FULL, static_cast<unsigned>(s[k]));
-    const int mx = __reduce_max_sync(FULL, m[k]);
-    if (lane == 0) {
-      scratch[k * NWARP + warp] = static_cast<int>(su);
-      scratch[(K + k) * NWARP + warp] = mx;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < K) {
-    const int k = threadIdx.x;
-    unsigned su = 0;
-    int mx = scratch[(K + k) * NWARP];
-    for (int i = 0; i < NWARP; ++i) {
-      su += static_cast<unsigned>(scratch[k * NWARP + i]);
-      mx = max(mx, scratch[(K + k) * NWARP + i]);
-    }
-    out_sum[k] = static_cast<int>(su);
-    out_max[k] = mx;
-  }
-  __syncthreads();
+// cp.async of 16 bytes, zero-filled where src_bytes is 0 (K5, K6)
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
 }
 
-// ---- motion search (K5 inter.cu, K6 wave.cu): blocks of SEARCH_THREADS
-// threads, thread t owning luma pixel t and, for t < 128, chroma pixel t
-// (U below 64, V above)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
 
-constexpr int SEARCH_THREADS = 256;
+// ---- motion search (K5 inter.cu, K6 wave.cu)
 
 // sub-pel direction d of motion.SP_DIRS (dy outer, dx inner, (0, 0)
 // skipped)
@@ -141,7 +118,7 @@ struct Phase {
 // column x at physical column (x + phase) mod (16 SLOTS), so that a block
 // walking a macroblock row replaces one strip per step instead of the
 // whole window, and can fill the next strip while the current window is
-// in use (K6); K5 loads whole windows and reads them with no phase.
+// in use (K6).
 template <int YW, int YOX, int YOY, int CW, int COX, int COY, int SLOTS = 0>
 struct Windows {
   static constexpr int YS = SLOTS ? 16 * SLOTS : YW;   // row strides
@@ -158,22 +135,6 @@ struct Windows {
       return x >= N ? x - N : x;
     } else {
       return x;
-    }
-  }
-
-  // fills the windows around the macroblock at (px, py) of (h, w) planes
-  // (chroma h/2 x w/2); reads outside a plane are zero
-  template <typename T>
-  __device__ __forceinline__ void load(const T* py_, const T* pu,
-                                       const T* pv, int h, int w, int px,
-                                       int py) {
-    for (int i = threadIdx.x; i < YW * YW; i += SEARCH_THREADS)
-      y[i] = static_cast<int16_t>(
-          pix(py_, h, w, py - YOY + i / YW, px - YOX + i % YW));
-    for (int i = threadIdx.x; i < CW * CW; i += SEARCH_THREADS) {
-      const int yy = py / 2 - COY + i / CW, xx = px / 2 - COX + i % CW;
-      u[i] = static_cast<int16_t>(pix(pu, h / 2, w / 2, yy, xx));
-      v[i] = static_cast<int16_t>(pix(pv, h / 2, w / 2, yy, xx));
     }
   }
 
@@ -199,14 +160,6 @@ struct Windows {
                                     Phase ph = {}) const {
     return i < 256 ? luma(dx, dy, i, ph)
                    : chroma(dx, dy, (i - 256) & 63, i >= 320, ph);
-  }
-
-  // this thread's luma and chroma pixels of the candidate at (dx, dy)
-  __device__ __forceinline__ void cand_px(int dx, int dy, int& cy,
-                                          int& cc) const {
-    const int t = threadIdx.x;
-    cy = luma(dx, dy, t);
-    cc = t < 128 ? chroma(dx, dy, t & 63, t >= 64) : 0;
   }
 
   // The pixels of the 3 x 3 candidates (ex + (k % 3 - 1) s, ey +
@@ -236,47 +189,7 @@ struct Windows {
       c[k] = cp[cr[k / 3] + cc[k % 3]];
     }
   }
-
-  // this thread's pixels of the 16 sub-pel candidates around the block
-  // at (bx, by): 2d the half-pel, 2d+1 the quarter-pel blend with its
-  // neighbour in direction d
-  __device__ __forceinline__ void subpel_px(int bx, int by, int (&cy)[16],
-                                            int (&cc)[16]) const {
-    int yb, cb;
-    cand_px(bx, by, yb, cb);
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      int ty, tc;
-      cand_px(bx + dir_x(d), by + dir_y(d), ty, tc);
-      cy[2 * d] = lerp_half(yb, ty);
-      cy[2 * d + 1] = lerp_quarter(yb, ty);
-      cc[2 * d] = lerp_half(cb, tc);
-      cc[2 * d + 1] = lerp_quarter(cb, tc);
-    }
-  }
 };
-
-// SAD (luma sum) and MAD (max over Y, U, V) of K candidates against the
-// source block src (384 ints, Y then U then V), given each thread's
-// candidate pixels (Windows::cand_px); results in out_sad[k] /
-// out_mad[k]. Ends with a barrier.
-template <int K, int NWARP>
-__device__ __forceinline__ void cand_metrics(const int* src,
-                                             const int (&cy)[K],
-                                             const int (&cc)[K],
-                                             int* scratch, int* out_sad,
-                                             int* out_mad) {
-  const int t = threadIdx.x;
-  int sums[K], maxs[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int dy = abs(src[t] - cy[k]);
-    const int dc = t < 128 ? abs(src[256 + t] - cc[k]) : 0;
-    sums[k] = dy;
-    maxs[k] = max(dy, dc);
-  }
-  block_sum_max<K, NWARP>(sums, maxs, scratch, out_sad, out_mad);
-}
 
 // full-pel acceptance of a candidate against the best so far
 // (motion.cpp:111-149; motion.accept_full), with the reference's

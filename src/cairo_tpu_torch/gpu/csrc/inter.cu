@@ -15,22 +15,48 @@
 // The per-reference winners merge in offset order: copy status dominates,
 // then strictly lower SAD; ties keep the earlier reference.
 //
-// Design: one thread block of 256 threads per macroblock. The block
-// stages the source blocks and, one reference at a time, the luma window
-// [py-32, py+48) x [px-32, px+48) and the chroma windows [cy-16, cy+24) x
-// [cx-16, cx+24) in shared memory as int16 (ring pixels are int16; reads
-// outside the plane are zero, the anchor's padding). Every candidate
-// offset lies within +-32 (16+8+4+2+1 plus sub-pel), so the windows hold
-// all of them; offsets clamp to the window as extract.extract_blocks
-// clips. Thread t owns luma pixel t and, for t < 128, one chroma pixel;
-// the 9 (or 16 sub-pel) candidates of a step are evaluated together, SAD
-// and MAD by warp reductions, and thread 0 folds them in scan order and
-// publishes the next base. The windows, the candidate metrics and the
-// acceptance rules are common.cuh's, shared with K6 (wave.cu). What
-// bounds it on this card is integer work: about 62 candidate evaluations
-// x 384 abs-diffs per MB and reference (~0.58 G ops per 1080p call)
-// against ~32 MB of traffic; the serial
-// fold and the barriers between steps keep it far above that bound.
+// What bounds it on this card is integer work: per MB and reference the
+// co-located candidate and, unless it freezes the MB, 5 rings of 8
+// candidates besides the centre (the centre is the ring-entry best, whose
+// SAD and MAD the search already holds) and 16 sub-pel blends, 57 x 384
+// abs-diffs: about 0.54 G per 1080p call with no MB frozen (0.58 G with
+// the centres recomputed), 16 us at one simple integer op per lane per
+// clock, against some 32 MB of traffic. The 24,480 searches of a 1080p
+// call are independent, so what counts is throughput across warps, not
+// the latency of one search.
+//
+// Design: one warp per (macroblock, reference) search, with no barrier
+// inside it; a frozen MB's warp stops after the co-located candidate, as
+// it accepts nothing further. A block takes a run of RUN macroblocks of
+// one MB row and all three references (3 RUN warps, two blocks an SM)
+// and stages, per reference, the union of the run's windows once: luma
+// rows [py - 32, py + 48) x columns [px0 - 32, px_last + 48), chroma
+// halved, int16, with 16-byte cp.async (zero-filled outside the planes,
+// the anchor's padding; px0 - 32 is a multiple of 16 and the width a
+// multiple of 16, so a copied chunk lies wholly inside or outside a
+// plane). Neighbouring MBs' windows overlap by 80 %, so this stages 23 KB
+// per MB instead of the 57.6 KB of one window set per MB and reference.
+// Every candidate lies within +-32 of the MB (16+8+4+2+1 and one sub-pel
+// step), so it stays inside the MB's 80 x 80 part of the strip and the
+// anchor's clamp to the window never acts (tests/test_torch_search_layout.py
+// walks every path).
+// Lane l owns luma pixels (4 (l >> 4) + (k & 3) + 8 (k >> 2), l & 15),
+// k < 8, and chroma pixels (l >> 3 + 4 k, l & 7), k < 2, of U and V; its
+// source pixels sit in registers. A candidate's 12 pixels are read at
+// immediate offsets from two addresses (luma, chroma), and the row
+// strides put the lanes of one load on distinct banks. SAD and MAD are
+// warp reductions (__reduce_add_sync / __reduce_max_sync), and every lane
+// folds the candidates in scan order with the branch-free acceptance
+// rules of common.cuh (the rule is not associative, so the fold stays
+// sequential), so the next ring's base needs no broadcast. After one
+// barrier, thread m of the block merges macroblock m's three winners in
+// offset order and writes its nine fields.
+// On NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, 1080p, a third of the
+// searches frozen): 0.145 ms of device time, against 0.92 ms for the
+// design this one replaced (one 256-thread block per MB, thread 0
+// folding, some 22 barriers per reference); 80 registers, no spill.
+// clock64 stamps put about half of a block's time in staging and its
+// wait, so staging, not the search, is what remains.
 
 #include "common.cuh"
 
@@ -38,24 +64,192 @@ namespace {
 
 using namespace cairo;
 
-constexpr int THREADS = SEARCH_THREADS;
-constexpr int NWARP = THREADS / 32;
+constexpr int RUN = 4;                    // macroblocks per block
+constexpr int NREF = RING - 1;            // reference offsets 1..3
+constexpr int THREADS = 32 * RUN * NREF;  // one warp per (MB, reference)
 constexpr int NFIELDS = 9;
+constexpr int REACH = 32;                 // 16+8+4+2+1, one sub-pel step
+constexpr int CREACH = REACH / 2;
 
-// luma [py-32, py+48) x [px-32, px+48), chroma [cy-16, cy+24) x
-// [cx-16, cx+24)
-using Win = Windows<80, 32, 32, 40, 16, 16>;
+// luma strip: rows [py - REACH, py + MB + REACH), columns
+// [px0 - REACH, px0 + MB RUN + REACH); a row stride of 68 words keeps
+// rows 16-byte aligned and puts rows 4 apart (a load's two half-warps)
+// 16 banks apart
+constexpr int YROWS = MB + 2 * REACH;             // 80
+constexpr int YCOLS = MB * RUN + 2 * REACH;       // 128
+constexpr int YS = YCOLS + 8;                     // 136
+// chroma strips, U then V: a row stride of 40 words puts a load's four
+// rows 8 banks apart
+constexpr int CROWS = MB / 2 + 2 * CREACH;        // 40
+constexpr int CCOLS = MB / 2 * RUN + 2 * CREACH;  // 64
+constexpr int CS = CCOLS + 16;                    // 80
+static_assert(YS % 8 == 0 && (YS / 2 * 4) % 32 == 16, "luma row stride");
+static_assert(CS % 8 == 0 && (CS / 2) % 32 == 8, "chroma row stride");
 
-struct Smem {
-  Win win;
-  int src[384];         // Y 16x16, U 8x8, V 8x8
-  int red[2 * 16 * NWARP];
-  int csad[16];
-  int cmad[16];
-  int base[2];          // ring-entry best, broadcast by thread 0
+struct Strip {
+  int16_t y[YROWS * YS];
+  int16_t c[2 * CROWS * CS];
 };
 
-__global__ void __launch_bounds__(THREADS)
+struct Smem {
+  Strip ref[NREF];
+  int res[NREF][RUN][NFIELDS];
+};
+
+// cp.async of one reference's strips for the run whose first MB is at
+// (px0, py), in chunks of 8 samples (16 bytes)
+__device__ __forceinline__ void stage(Strip& s, const int16_t* ry,
+                                      const int16_t* ru, const int16_t* rv,
+                                      int h, int w, int px0, int py) {
+  constexpr int YCHUNKS = YROWS * YCOLS / 8;
+  for (int i = threadIdx.x; i < YCHUNKS; i += THREADS) {
+    const int row = i / (YCOLS / 8), col = 8 * (i % (YCOLS / 8));
+    const int gy = py - REACH + row, gx = px0 - REACH + col;
+    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const int16_t* src = in ? ry + static_cast<size_t>(gy) * w + gx : ry;
+    cp_async16z(&s.y[row * YS + col], src, in ? 16 : 0);
+  }
+  constexpr int CCHUNKS = CROWS * CCOLS / 8;
+  const int ch = h / 2, cw = w / 2;
+  for (int i = threadIdx.x; i < 2 * CCHUNKS; i += THREADS) {
+    const int p = i / CCHUNKS, j = i % CCHUNKS;
+    const int row = j / (CCOLS / 8), col = 8 * (j % (CCOLS / 8));
+    const int gy = py / 2 - CREACH + row, gx = px0 / 2 - CREACH + col;
+    const bool in = gy >= 0 && gy < ch && gx >= 0 && gx < cw;
+    const int16_t* plane = p ? rv : ru;
+    const int16_t* src =
+        in ? plane + static_cast<size_t>(gy) * cw + gx : plane;
+    cp_async16z(&s.c[(p * CROWS + row) * CS + col], src, in ? 16 : 0);
+  }
+}
+
+// row of the lane's luma pixel k below its pixel k = 0
+__host__ __device__ constexpr int yrow(int k) {
+  return (k & 3) + 8 * (k >> 2);
+}
+
+// The lane's part of one candidate: y points at its luma pixel k = 0 of
+// the candidate, c at its U pixel k = 0; sy / sc its source pixels.
+// Returns the candidate's SAD (luma) and MAD (Y, U, V) over the warp.
+__device__ __forceinline__ void metrics(const int (&sy)[8],
+                                        const int (&sc)[4],
+                                        const int16_t* y, const int16_t* c,
+                                        int& sad, int& mad) {
+  int s = 0, m = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int d = abs(sy[k] - y[yrow(k) * YS]);
+    s += d;
+    m = max(m, d);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    m = max(m, abs(sc[k] - c[(k >> 1) * CROWS * CS + (k & 1) * 4 * CS]));
+  sad = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(s)));
+  mad = __reduce_max_sync(FULL, m);
+}
+
+// the lane's 12 pixels of the block at (y, c) (as for metrics)
+__device__ __forceinline__ void pixels(const int16_t* y, const int16_t* c,
+                                       int (&py)[8], int (&pc)[4]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) py[k] = y[yrow(k) * YS];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    pc[k] = c[(k >> 1) * CROWS * CS + (k & 1) * 4 * CS];
+}
+
+// SAD and MAD over the warp of a blend of two blocks' pixels
+template <bool QUARTER>
+__device__ __forceinline__ void blend_metrics(const int (&sy)[8],
+                                              const int (&sc)[4],
+                                              const int (&by)[8],
+                                              const int (&bc)[4],
+                                              const int (&ty)[8],
+                                              const int (&tc)[4], int& sad,
+                                              int& mad) {
+  int s = 0, m = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int p =
+        QUARTER ? lerp_quarter(by[k], ty[k]) : lerp_half(by[k], ty[k]);
+    const int d = abs(sy[k] - p);
+    s += d;
+    m = max(m, d);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int p =
+        QUARTER ? lerp_quarter(bc[k], tc[k]) : lerp_half(bc[k], tc[k]);
+    m = max(m, abs(sc[k] - p));
+  }
+  sad = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(s)));
+  mad = __reduce_max_sync(FULL, m);
+}
+
+// The search of an MB that the co-located candidate did not freeze,
+// from the co-located state (bx, by) = (0, 0), sad, mad: rings of 9
+// candidates at steps 16 .. 1 around the ring-entry best, then the 16
+// sub-pel blends around the final best. Updates bx, by, sad, mad and sets
+// spp, spa, spi.
+__device__ __forceinline__ void search(const int (&sy)[8], const int (&sc)[4],
+                                       const int16_t* y0, const int16_t* c0,
+                                       int px, int py, int h, int w,
+                                       int mad_thr, int& bx, int& by,
+                                       int& sad, int& mad, int& spp,
+                                       int& spa, int& spi) {
+  int ssd = INT32_MAX_;
+#pragma unroll 1
+  for (int step = 16; step >= 1; step >>= 1) {
+    const int ex = bx, ey = by, e_sad = sad, e_mad = mad;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int dx = ex + (k % 3 - 1) * step, dy = ey + (k / 3 - 1) * step;
+      int c_sad = e_sad, c_mad = e_mad;   // k = 4: the ring-entry best
+      if (k != 4)
+        metrics(sy, sc, y0 + dy * YS + dx, c0 + (dy >> 1) * CS + (dx >> 1),
+                c_sad, c_mad);
+      const int c_ssd = dx * dx + dy * dy;
+      const bool take = in_frame(px, py, dx, dy, h, w) &
+                        eval_accept(sad, mad, ssd, c_sad, c_mad, c_ssd,
+                                    mad_thr);
+      bx = take ? dx : bx;
+      by = take ? dy : by;
+      sad = take ? c_sad : sad;
+      mad = take ? c_mad : mad;
+      ssd = take ? c_ssd : ssd;
+    }
+  }
+
+  // sub-pel: the half-pel, then the quarter-pel blend of the best block
+  // with its neighbour in direction d
+  int qy[8], qc[4];
+  pixels(y0 + by * YS + bx, c0 + (by >> 1) * CS + (bx >> 1), qy, qc);
+#pragma unroll 2   // fully unrolled, it spills at 80 registers
+  for (int d = 0; d < 8; ++d) {
+    const int dx = bx + dir_x(d), dy = by + dir_y(d);
+    int ty[8], tc[4];
+    pixels(y0 + dy * YS + dx, c0 + (dy >> 1) * CS + (dx >> 1), ty, tc);
+    const bool ok = in_frame(px, py, dx, dy, h, w);
+    int hs, hm, qs, qm;
+    blend_metrics<false>(sy, sc, qy, qc, ty, tc, hs, hm);
+    blend_metrics<true>(sy, sc, qy, qc, ty, tc, qs, qm);
+    bool take = ok & subpel_accept(sad, mad, hs, hm, mad_thr);
+    spp = take ? 1 : spp;
+    spa = take ? 0 : spa;
+    spi = take ? d : spi;
+    sad = take ? hs : sad;
+    mad = take ? hm : mad;
+    take = ok & subpel_accept(sad, mad, qs, qm, mad_thr);
+    spp = take ? 1 : spp;
+    spa = take ? 1 : spa;
+    spi = take ? d : spi;
+    sad = take ? qs : sad;
+    mad = take ? qm : mad;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 inter_search_kernel(const int* __restrict__ src_y,
                     const int* __restrict__ src_u,
                     const int* __restrict__ src_v,
@@ -64,102 +258,84 @@ inter_search_kernel(const int* __restrict__ src_y,
                     const int16_t* __restrict__ ring_v,
                     const int* __restrict__ hdr, int h, int w,
                     int* __restrict__ out) {
-  __shared__ Smem s;
-  const int t = threadIdx.x;
-  const int n = blockIdx.x;
-  const int nmb = (h / MB) * (w / MB);
-  const int wb = w / MB;
-  const int px = (n % wb) * MB, py = (n / wb) * MB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  const int wb = w / MB, nmb = (h / MB) * wb;
+  const int bi = blockIdx.y, mb0 = blockIdx.x * RUN;
+  const int px0 = mb0 * MB, py = bi * MB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = warp / RUN, m = warp % RUN;   // reference index, MB of run
   const int frame_index = hdr[0];
   const int mad_thr = (hdr[1] >> 2) + 1;
+  const int ch = h / 2, cw = w / 2;
 
-  s.src[t] = src_y[static_cast<size_t>(n) * 256 + t];
-  if (t < 64) s.src[256 + t] = src_u[static_cast<size_t>(n) * 64 + t];
-  else if (t < 128)
-    s.src[256 + t] = src_v[static_cast<size_t>(n) * 64 + t - 64];
+  for (int i = 0; i < NREF; ++i) {
+    const int slot = ((frame_index + RING - 1 - i) % RING + RING) % RING;
+    stage(s.ref[i], ring_y + static_cast<size_t>(slot) * h * w,
+          ring_u + static_cast<size_t>(slot) * ch * cw,
+          ring_v + static_cast<size_t>(slot) * ch * cw, h, w, px0, py);
+  }
 
-  // merged best across references (meaningful in thread 0 only)
-  int b_sad = 0, b_copy = 0, b_motion = 0, b_target = 0, b_mx = 0, b_my = 0;
-  int b_spp = 0, b_spa = 0, b_spi = 0;
-
-  for (int offset = 1; offset < RING; ++offset) {
-    const int slot = ((frame_index + RING - offset) % RING + RING) % RING;
-    __syncthreads();  // the previous reference's windows are done with
-    s.win.load(ring_y + static_cast<size_t>(slot) * h * w,
-               ring_u + static_cast<size_t>(slot) * (h / 2) * (w / 2),
-               ring_v + static_cast<size_t>(slot) * (h / 2) * (w / 2), h, w,
-               px, py);
-    __syncthreads();
-
-    // co-located early-out
-    {
-      int y[1], c[1];
-      s.win.cand_px(0, 0, y[0], c[0]);
-      cand_metrics<1, NWARP>(s.src, y, c, s.red, s.csad, s.cmad);
-    }
-    const bool frozen = s.cmad[0] < mad_thr;
-    int mx = 0, my = 0, sad = s.csad[0], mad = s.cmad[0], ssd = INT32_MAX_;
-    if (t == 0) s.base[0] = s.base[1] = 0;
-    __syncthreads();
-
-    for (int step = 16; step >= 1; step >>= 1) {
-      const int bx = s.base[0], by = s.base[1];
-      int y[9], c[9];
+  const bool active = mb0 + m < wb;
+  const int n = bi * wb + mb0 + m;
+  const int px = px0 + m * MB;
+  // the lane's source pixels, loaded while the strips arrive
+  int sy[8] = {}, sc[4] = {};
+  const int ly = 4 * (lane >> 4), lx = lane & 15;
+  const int cyl = lane >> 3, cxl = lane & 7;
+  if (active) {
 #pragma unroll
-      for (int k = 0; k < 9; ++k)
-        s.win.cand_px(bx + (k % 3 - 1) * step, by + (k / 3 - 1) * step, y[k],
-                      c[k]);
-      cand_metrics<9, NWARP>(s.src, y, c, s.red, s.csad, s.cmad);
-      if (t == 0) {
-        for (int k = 0; k < 9; ++k) {
-          const int cx = bx + (k % 3 - 1) * step, cy = by + (k / 3 - 1) * step;
-          const int c_ssd = cx * cx + cy * cy;
-          if (!frozen && in_frame(px, py, cx, cy, h, w) &&
-              eval_accept(sad, mad, ssd, s.csad[k], s.cmad[k], c_ssd,
-                          mad_thr)) {
-            mx = cx; my = cy; sad = s.csad[k]; mad = s.cmad[k]; ssd = c_ssd;
-          }
-        }
-        s.base[0] = mx;
-        s.base[1] = my;
-      }
-      __syncthreads();
-    }
-    mx = s.base[0];
-    my = s.base[1];
+    for (int k = 0; k < 8; ++k)
+      sy[k] = src_y[static_cast<size_t>(n) * 256 + (ly + yrow(k)) * MB + lx];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      sc[k] = ((k >> 1) ? src_v : src_u)[static_cast<size_t>(n) * 64 +
+                                         (cyl + 4 * (k & 1)) * 8 + cxl];
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
-    // sub-pel: candidate 2d is the half-pel and 2d+1 the quarter-pel
-    // blend of the best block with its neighbour in direction d
-    {
-      int y[16], c[16];
-      s.win.subpel_px(mx, my, y, c);
-      cand_metrics<16, NWARP>(s.src, y, c, s.red, s.csad, s.cmad);
-    }
-    if (t == 0) {
-      int spp = 0, spa = 0, spi = 0;
-      for (int k = 0; k < 16; ++k) {
-        const int d = k >> 1;
-        if (!frozen && in_frame(px, py, mx + dir_x(d), my + dir_y(d), h, w) &&
-            subpel_accept(sad, mad, s.csad[k], s.cmad[k], mad_thr)) {
-          spp = 1; spa = k & 1; spi = d; sad = s.csad[k]; mad = s.cmad[k];
-        }
-      }
-      const int copy = mad < mad_thr;
-      const bool take = offset == 1 ||
-          (copy != b_copy ? copy != 0 : sad < b_sad);
-      if (take) {
-        b_sad = sad; b_copy = copy;
-        b_motion = (mx != 0 || my != 0 || spp) ? 1 : 0;
-        b_target = offset; b_mx = mx; b_my = my;
-        b_spp = spp; b_spa = spa; b_spi = spi;
-      }
+  if (active) {
+    const Strip& st = s.ref[r];
+    // the lane's pixel k = 0 of the candidate at offset (0, 0); the
+    // candidate at (dx, dy) is at + dy YS + dx (chroma (dy >> 1) CS +
+    // (dx >> 1))
+    const int16_t* y0 = st.y + (REACH + ly) * YS + REACH + m * MB + lx;
+    const int16_t* c0 = st.c + (CREACH + cyl) * CS + CREACH + m * 8 + cxl;
+
+    // a frozen MB (co-located MAD below the threshold) accepts no other
+    // candidate: its warp stops after the co-located one
+    int bx = 0, by = 0, sad, mad, spp = 0, spa = 0, spi = 0;
+    metrics(sy, sc, y0, c0, sad, mad);
+    if (mad >= mad_thr)
+      search(sy, sc, y0, c0, px, py, h, w, mad_thr, bx, by, sad, mad, spp,
+             spa, spi);
+    if (lane == 0) {
+      int* f = s.res[r][m];
+      f[0] = sad;
+      f[1] = mad < mad_thr;
+      f[2] = (bx != 0 || by != 0 || spp) ? 1 : 0;
+      f[3] = r + 1;
+      f[4] = bx;
+      f[5] = by;
+      f[6] = spp;
+      f[7] = spa;
+      f[8] = spi;
     }
   }
-  if (t == 0) {
-    const int f[NFIELDS] = {b_sad, b_copy, b_motion, b_target, b_mx, b_my,
-                            b_spp, b_spa, b_spi};
-    for (int i = 0; i < NFIELDS; ++i)
-      out[static_cast<size_t>(i) * nmb + n] = f[i];
+  __syncthreads();
+
+  // the merge in offset order: copy status dominates, then strictly lower
+  // SAD; a tie keeps the earlier reference
+  const int t = threadIdx.x;
+  if (t < RUN && mb0 + t < wb) {
+    const int* best = s.res[0][t];
+    for (int i = 1; i < NREF; ++i) {
+      const int* c = s.res[i][t];
+      if (c[1] != best[1] ? c[1] != 0 : c[0] < best[0]) best = c;
+    }
+    for (int f = 0; f < NFIELDS; ++f)
+      out[static_cast<size_t>(f) * nmb + bi * wb + mb0 + t] = best[f];
   }
 }
 
@@ -173,8 +349,13 @@ extern "C" int cairo_inter_search(const void* src_y, const void* src_u,
                                   const void* ring_u, const void* ring_v,
                                   const void* hdr, int h, int w,
                                   void* out, void* stream) {
-  const int n = (h / MB) * (w / MB);
-  inter_search_kernel<<<n, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      inter_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(Smem)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((w / MB + RUN - 1) / RUN, h / MB);
+  inter_search_kernel<<<grid, THREADS, sizeof(Smem),
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(src_y), static_cast<const int*>(src_u),
       static_cast<const int*>(src_v), static_cast<const int16_t*>(ring_y),
       static_cast<const int16_t*>(ring_u), static_cast<const int16_t*>(ring_v),

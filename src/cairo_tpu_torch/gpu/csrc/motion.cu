@@ -17,10 +17,37 @@
 // (key << 21 | dist^2 << 11 | scan) and a block-wide min resolves ties
 // exactly as the sequential scan's strict '<' does.
 //
-// K1's design: one thread block per chroma block; the source block and
-// the 24x24 reference window sit in shared memory as int32 and every
-// thread evaluates whole offsets. Ring pixels are int16 and can leave
+// K1's design: what bounds it on this card is arithmetic, 289 offsets x
+// 64 pixels x 2 planes abs-diffs per chroma block, about 0.30 G per 1080p
+// call (9 us at one op per lane per clock) against some 16 MB of traffic.
+// A block takes a run of K1_RUN = 32 chroma blocks, one per lane, and
+// warp dy (0..16) takes offset row dy - 8 and all 17 dx of its lane's
+// block, so the 289 offsets tile with no idle tail round. Runs follow the
+// flat (hb, wb) order and may cross into the next block row, so a 1080p
+// call is 255 blocks, all resident at once at two an SM, where runs of
+// one row would make 272 and a second, almost empty round (which cost a
+// quarter of the time on the card). Each run stages its reference strips,
+// rows [8 bi - 8, 8 bi + 16) of each block row it touches with 8 columns
+// of margin each side, 16 bytes a load (a chunk starts at a multiple of 8
+// columns and the plane width is a multiple of 8, so it lies wholly
+// inside or outside the plane; outside is zero, the anchor's padding),
+// and its source blocks, once. For each source row a thread reads the
+// 24-pixel window row segment once into registers and does 8 x 17
+// abs-diffs from them, so a shared load serves about 6 abs-diffs instead
+// of half of one. Strip column c is stored at c + c / 8, so the lanes of
+// a load, one chroma block (8 columns) apart, fall 9 banks apart. The
+// abs-diffs run in fp32, FADD and FMNMX with |.| folded, two instructions
+// each (the SASS holds exactly that): the source chroma lies in int16
+// range (0..255 in the codec) and the reference is int16, so |src - ref|
+// <= 65535 and every difference, |.| and max is exact. The 289 maxima of
+// each block go out through shared memory, as one contiguous, coalesced
+// range of the (hb, wb, 289) layout. Ring pixels are int16 and can leave
 // 0..255 (recon overshoot), so the arithmetic is not byte SIMD.
+// On NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, 1080p): 0.033 ms of
+// device time against 0.11 ms for the design this one replaced (one
+// 128-thread block per chroma block, 152 registers); 56 registers, no
+// spill. FMNMX issues at half the FADD rate on this card, so the floor of
+// this instruction mix is about 19 us.
 //
 // K2's design: what bounds it is arithmetic, 256 abs-diff-accumulates
 // per offset per macroblock (~2.27 G per 1080p call) against ~22 MB of
@@ -61,54 +88,135 @@ constexpr int CR = 8;
 constexpr int CSPAN = 2 * CR + 1;     // 17
 constexpr int CNOFF = CSPAN * CSPAN;  // 289
 constexpr int CWIN = CB + 2 * CR;     // 24
-constexpr int K1_THREADS = 128;
 constexpr unsigned long long NONE = ~0ull;
 
-__device__ __forceinline__ int ref_at(const int16_t* ref, int rows, int cols,
-                                      int y, int x) {
-  return (y >= 0 && y < rows && x >= 0 && x < cols)
-             ? static_cast<int>(ref[static_cast<size_t>(y) * cols + x])
-             : 0;
-}
+// K1: a run of up to K1_RUN chroma blocks, consecutive in the flat (hb, wb)
+// order, per thread block, one per lane; warp dy takes the offsets
+// (dy - 8, -8 .. 8) of its lane's block. A run spans at most two block
+// rows (segments): a frame narrower than K1_RUN blocks takes runs of one
+// row, wb blocks long. Segment 0 holds the run's blocks in block row bi0,
+// at strip columns [0, 8 na + 16), plane columns [8 bj0 - 8, 8 (bj0 + na)
+// + 8); segment 1 the rest, in row bi0 + 1, from strip column 8 na + 16,
+// plane columns [-8, 8 (nb - na) + 8). Lane b's window is strip columns
+// [8 b + 16 seg(b), + 24).
+constexpr int K1_RUN = 32;
+constexpr int K1_THREADS = 32 * CSPAN;          // 544
+constexpr int K1_COLS = CB * K1_RUN + 4 * CR;   // 288 strip columns
 
-__global__ void __launch_bounds__(K1_THREADS)
+// shared-memory column of strip column c: lanes one chroma block (8
+// columns) apart fall 9 banks apart
+__host__ __device__ constexpr int k1_col(int c) { return c + (c >> 3); }
+
+struct K1Smem {
+  union {
+    struct {
+      float win[2][CWIN][k1_col(K1_COLS)];   // U, V reference strips
+      float src[2][CB][CB][K1_RUN];          // U, V source: [row][col][lane]
+    } in;
+    int out[K1_RUN * CNOFF];                 // the run's maps
+  };
+};
+
+__global__ void __launch_bounds__(K1_THREADS, 2)
 chroma_max_kernel(const int* __restrict__ su, const int* __restrict__ sv,
                   const int16_t* __restrict__ ru,
                   const int16_t* __restrict__ rv, int h, int w,
                   int* __restrict__ out) {
-  __shared__ int s_u[CB][CB];
-  __shared__ int s_v[CB][CB];
-  __shared__ int r_u[CWIN][CWIN];
-  __shared__ int r_v[CWIN][CWIN];
-  const int bj = blockIdx.x, bi = blockIdx.y;
-  const int y0 = bi * CB, x0 = bj * CB;
-  for (int i = threadIdx.x; i < CB * CB; i += blockDim.x) {
-    const int r = i / CB, c = i % CB;
-    const size_t p = static_cast<size_t>(y0 + r) * w + x0 + c;
-    s_u[r][c] = su[p];
-    s_v[r][c] = sv[p];
+  extern __shared__ __align__(16) unsigned char k1_raw[];
+  K1Smem& s = *reinterpret_cast<K1Smem*>(k1_raw);
+  const int t = threadIdx.x;
+  const int wb = w / CB, nblk = (h / CB) * wb;
+  const int run = min(K1_RUN, wb);
+  const int n0 = blockIdx.x * run;
+  const int nb = min(run, nblk - n0);          // blocks of this run
+  const int bi0 = n0 / wb, bj0 = n0 % wb;
+  const int na = min(nb, wb - bj0);            // of them in row bi0
+  const int nq0 = na + 2;                      // segment 0's 8-column chunks
+  const int nq = nq0 + (nb > na ? nb - na + 2 : 0);
+
+  // ---- stage the reference strips (8-column chunks) and the lanes'
+  // source blocks (4-column chunks) as floats
+  for (int i = t; i < CWIN * nq; i += K1_THREADS) {
+    const int r = i / nq, q = i % nq;
+    const bool seg1 = q >= nq0;
+    const int y = CB * (bi0 + seg1) - CR + r;
+    const int x = seg1 ? CB * (q - nq0) - CR : CB * (bj0 + q) - CR;
+    union {
+      int4 v;
+      int16_t e[8];
+    } cu, cv;
+    cu.v = cv.v = make_int4(0, 0, 0, 0);
+    if (y >= 0 && y < h && x >= 0 && x < w) {
+      const size_t o = static_cast<size_t>(y) * w + x;
+      cu.v = *reinterpret_cast<const int4*>(ru + o);
+      cv.v = *reinterpret_cast<const int4*>(rv + o);
+    }
+    float* du = &s.in.win[0][r][k1_col(CB * q)];
+    float* dv = &s.in.win[1][r][k1_col(CB * q)];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      du[j] = static_cast<float>(cu.e[j]);
+      dv[j] = static_cast<float>(cv.e[j]);
+    }
   }
-  for (int i = threadIdx.x; i < CWIN * CWIN; i += blockDim.x) {
-    const int r = i / CWIN, c = i % CWIN;
-    const int y = y0 - CR + r, x = x0 - CR + c;
-    r_u[r][c] = ref_at(ru, h, w, y, x);
-    r_v[r][c] = ref_at(rv, h, w, y, x);
+  for (int i = t; i < CB * nb * 2; i += K1_THREADS) {
+    const int r = i / (2 * nb), b = i % (2 * nb) / 2, c0 = 4 * (i % 2);
+    const int n = n0 + b;
+    const size_t o =
+        static_cast<size_t>(CB * (n / wb) + r) * w + CB * (n % wb) + c0;
+    const int4 a = *reinterpret_cast<const int4*>(su + o);
+    const int4 e = *reinterpret_cast<const int4*>(sv + o);
+    float(*pu)[K1_RUN] = s.in.src[0][r] + c0;
+    float(*pv)[K1_RUN] = s.in.src[1][r] + c0;
+    pu[0][b] = static_cast<float>(a.x);
+    pu[1][b] = static_cast<float>(a.y);
+    pu[2][b] = static_cast<float>(a.z);
+    pu[3][b] = static_cast<float>(a.w);
+    pv[0][b] = static_cast<float>(e.x);
+    pv[1][b] = static_cast<float>(e.y);
+    pv[2][b] = static_cast<float>(e.z);
+    pv[3][b] = static_cast<float>(e.w);
   }
   __syncthreads();
-  int* o = out + (static_cast<size_t>(bi) * (w / CB) + bj) * CNOFF;
-  for (int off = threadIdx.x; off < CNOFF; off += blockDim.x) {
-    const int dy = off / CSPAN, dx = off % CSPAN;
-    int m = 0;
+
+  // ---- 17 offsets per thread from registers: fp32 sub, |.| and max,
+  // exact in the stated domain
+  const int dy = t >> 5, b = t & 31;
+  float m[CSPAN];
 #pragma unroll
-    for (int r = 0; r < CB; ++r) {
+  for (int k = 0; k < CSPAN; ++k) m[k] = 0.f;
+  if (b < nb) {
+    // k1_col(8 b + 16 seg + j) = 9 b + 18 seg + j + j / 8 for j < 24
+    const int base = 9 * b + (b >= na ? 18 : 0);
 #pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        m = max(m, max(abs(s_u[r][c] - r_u[dy + r][dx + c]),
-                       abs(s_v[r][c] - r_v[dy + r][dx + c])));
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll 2
+      for (int r = 0; r < CB; ++r) {
+        const float* wr = &s.in.win[p][dy + r][base];
+        float wv[CB + CSPAN - 1];
+#pragma unroll
+        for (int j = 0; j < CB + CSPAN - 1; ++j) wv[j] = wr[j + (j >> 3)];
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          const float x = s.in.src[p][r][c][b];
+#pragma unroll
+          for (int k = 0; k < CSPAN; ++k)
+            m[k] = fmaxf(m[k], fabsf(x - wv[c + k]));
+        }
       }
     }
-    o[off] = m;
   }
+  __syncthreads();   // the strips are done with: the maps reuse them
+
+  // ---- the run's maps are one contiguous range of the output
+  if (b < nb) {
+#pragma unroll
+    for (int k = 0; k < CSPAN; ++k)
+      s.out[b * CNOFF + dy * CSPAN + k] = static_cast<int>(m[k]);
+  }
+  __syncthreads();
+  int* o = out + static_cast<size_t>(n0) * CNOFF;
+  for (int i = t; i < nb * CNOFF; i += K1_THREADS) o[i] = s.out[i];
 }
 
 // K2: K2_MBS macroblocks per block; thread t < K2_MBS * K2_UNITS owns
@@ -327,8 +435,13 @@ dense_select_kernel(const int* __restrict__ src,
 extern "C" int cairo_chroma_max_maps(const void* su, const void* sv,
                                      const void* ru, const void* rv, int h,
                                      int w, void* out, void* stream) {
-  const dim3 grid(w / CB, h / CB);
-  chroma_max_kernel<<<grid, K1_THREADS, 0,
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      chroma_max_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(K1Smem)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int wb = w / CB, run = wb < K1_RUN ? wb : K1_RUN;
+  const int grid = ((h / CB) * wb + run - 1) / run;
+  chroma_max_kernel<<<grid, K1_THREADS, sizeof(K1Smem),
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(su), static_cast<const int*>(sv),
       static_cast<const int16_t*>(ru), static_cast<const int16_t*>(rv), h, w,

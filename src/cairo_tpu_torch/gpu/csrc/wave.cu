@@ -76,7 +76,7 @@ namespace {
 
 using namespace cairo;
 
-constexpr int THREADS = SEARCH_THREADS;
+constexpr int THREADS = 256;
 constexpr int TOP_Q = 31;                    // tables.MAX_QUANT_LEVELS - 1
 constexpr int QSF = 16;                      // tables.QUANTIZER_SCALE_FACTOR
 constexpr int NDESC = 11;
@@ -171,10 +171,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                :: "r"(d), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
 // lane 0 of the calling warp waits until *progress >= need; then the
 // whole warp may read what the rows above published
 __device__ __forceinline__ void wait_progress(const int* progress,
@@ -189,14 +185,6 @@ __device__ __forceinline__ void wait_progress(const int* progress,
     }
   }
   __syncwarp();
-}
-
-// cp.async of 16 bytes, zero-filled where src_bytes is 0
-__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
-                                            int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
 }
 
 // the calling warp's lane 0 waits until the shared flag reaches need

@@ -65,7 +65,9 @@ def chroma_max_maps_plain(src_u, src_v, ref_u, ref_v):
 
 def chroma_max_maps(src_u, src_v, ref_u, ref_v):
     """(hb, wb, 289) int32 chroma abs-max maps over offsets [-8, 8]^2.
-    src_*: (H, W) int32 chroma planes; ref_*: (H, W) int16."""
+    src_*: (H, W) int32 chroma planes with values in int16 range (source
+    planes are 0..255; the kernel's float arithmetic is exact there);
+    ref_*: (H, W) int16."""
     if src_u.device.type == "cpu":
         return chroma_max_maps_plain(src_u, src_v, ref_u, ref_v)
     h, w = src_u.shape

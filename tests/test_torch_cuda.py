@@ -254,3 +254,107 @@ def test_wave_kernel_built_for_the_modules_window(dev):
     WIN_X / WIN_Y, its right reach the wait rule's LEAD."""
     cuda_wave._check_geometry.cache_clear()
     cuda_wave._check_geometry()
+
+
+# frame sizes for K5: one MB column, one MB row, and 13 MB columns (a
+# masked tail after the last full run of inter.cu's RUN macroblocks)
+K5_SIZES = [(16, 96), (96, 16), (208, 48)]
+
+
+def _k5_case(kind, h, w, rng, dev):
+    """Source blocks, ring and header for K5: `shifted` (shifted copies
+    with noise), `flat0` / `flat8192` (flat planes: every candidate ties,
+    at SAD 0 and at the SAD threshold), `frozen` (every reference equals
+    the source: every MB freezes on the co-located candidate), `moving`
+    (no co-located MAD under the threshold: no MB freezes)."""
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    src_p = [_t(rng.integers(0, 256, s).astype(np.int32)).to(dev)
+             for s in shapes]
+    if kind.startswith("flat"):
+        src_p = [torch.full_like(p, 128) for p in src_p]
+        level = 128 if kind == "flat0" else 96
+        ring = [torch.full((RING,) + p.shape, level, dtype=torch.int16,
+                           device=dev) for p in src_p]
+    elif kind == "frozen":
+        ring = [torch.stack([p] * RING).to(torch.int16).contiguous()
+                for p in src_p]
+    else:
+        ring = []
+        for i, p in enumerate(src_p):
+            slots = []
+            for k in range(RING):
+                dy, dx = (3 * k - 4, 5 - 2 * k) if i == 0 else (k - 2, 2 - k)
+                r = torch.roll(p, (dy, dx), (0, 1))
+                noise = rng.integers(-2, 3, p.shape) if kind == "shifted" \
+                    else rng.integers(40, 90, p.shape)
+                slots.append(r + _t(noise.astype(np.int32)).to(dev))
+            ring.append(torch.stack(slots).to(torch.int16).contiguous())
+    src = tuple(ops.plane_to_blocks(p, s).contiguous()
+                for p, s in zip(src_p, (16, 8, 8)))
+    return src, tuple(ring)
+
+
+def _colocated_frozen(src, ring, hdr):
+    """Per MB and reference offset 1..3: co-located MAD below the
+    threshold."""
+    thr = (int(hdr[1]) >> 2) + 1
+    out = []
+    for off in range(1, RING):
+        slot = (int(hdr[0]) - off) % RING
+        co = [ops.plane_to_blocks(r[slot].to(torch.int32), s)
+              for r, s in zip(ring, (16, 8, 8))]
+        mad = torch.stack([(a - b).abs().amax(dim=(1, 2))
+                           for a, b in zip(src, co)]).amax(0)
+        out.append(mad < thr)
+    return torch.stack(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["shifted", "flat0", "flat8192", "frozen",
+                                  "moving"])
+@pytest.mark.parametrize("size", K5_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_inter_search_edges(dev, size, kind):
+    """K5 against its plain version at frame edges and a masked tail, where
+    ties decide, with every MB frozen and with none; a second call gives
+    identical outputs."""
+    w, h = size
+    rng = np.random.default_rng(w * 1000 + h)
+    src, ring = _k5_case(kind, h, w, rng, dev)
+    hdr = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    frozen = _colocated_frozen(src, ring, hdr)
+    if kind == "frozen":
+        assert bool(frozen.all())
+    if kind == "moving":
+        assert not bool(frozen.any())
+    got = cuda_inter.inter_search(src, ring, hdr)
+    again = cuda_inter.inter_search(src, ring, hdr)
+    want = cuda_inter.inter_search_plain(src, ring, hdr)
+    for k in cuda_inter.FIELDS + ("is_intra",):
+        _eq(got[k], want[k])
+        _eq(again[k], got[k])
+
+
+# chroma plane sizes (w, h) for K1: one chroma block column, widths of 40
+# and 33 blocks (not multiples of motion.cu's run of 32) and 1080p chroma
+K1_SIZES = [(8, 32), (320, 24), (264, 16), (960, 544)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "extremes"])
+@pytest.mark.parametrize("size", K1_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_chroma_max_maps_edges(dev, size, kind):
+    """K1 against its plain version at widths that leave a masked tail, and
+    with source values 0 / 255 against references at -32768 / 32767 (the
+    widest differences its fp32 arithmetic must keep exact)."""
+    w, h = size
+    rng = np.random.default_rng(w + 7 * h)
+    if kind == "random":
+        src = [rng.integers(0, 256, (h, w)) for _ in range(2)]
+        ref = [rng.integers(-300, 560, (h, w)) for _ in range(2)]
+    else:
+        src = [rng.choice([0, 255], (h, w)) for _ in range(2)]
+        ref = [rng.choice([-32768, 32767], (h, w)) for _ in range(2)]
+    su, sv = (_t(a.astype(np.int32)).to(dev) for a in src)
+    ru, rv = (_t(a, torch.int16).to(dev) for a in ref)
+    _eq(cuda_motion.chroma_max_maps(su, sv, ru, rv),
+        cuda_motion.chroma_max_maps_plain(su, sv, ru, rv))
