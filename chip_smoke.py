@@ -13,14 +13,15 @@ Phases, one line each with the elapsed seconds:
   2. kernels: K1-K4 against their plain PyTorch versions at the 1080p
      shapes of the main path, plus edge cases (tile origin x0, copy-grade
      shifts, flat planes that force ties, recon overshoot beyond 0..255,
-     references over the whole int16 range); exact equality; CUDA-event
-     times, K3's for its luma and its chroma call, and K1's and K2's
-     device time from a torch.profiler trace;
+     references over the whole int16 range, window offsets the clamp
+     catches); exact equality; K3 as the main path launches it (Y, U and
+     V in one launch) and as a luma and a chroma call alone; CUDA-event
+     times and each kernel's device time from a torch.profiler trace;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
-     frame may take the host decode path, and every kernel must have been
-     launched;
+     frame may take the host decode path, every kernel must have been
+     launched, and K3 once per reference search (as often as K2);
   4. CPU against card: 3 frames at 176x144 encoded with device="cpu" and
      on the card give byte-identical chunks;
   2b. the conformance path's kernels against their plain versions at its
@@ -30,12 +31,12 @@ Phases, one line each with the elapsed seconds:
      threshold the reference's C-precedence quirk tests) and with overshoot
      beyond 0..255, and K6 on one intra and one inter wave pass fed the
      same K5 output, K5 and K6 each run twice with identical outputs (an
-     ordering race between K6's pipelined rows would show); K5's and K6's
-     device time from a torch.profiler trace that may hold no more than
-     one launch of the kernel per call, K6's time per step of its 321-MB
-     dependency chain, and the registers and spills of K1, K2, K5 and K6
-     from the build's ptxas log (kept beside the library, so a cached
-     build reports them too);
+     ordering race between K6's pipelined rows would show); K4's, K5's and
+     K6's device time from a torch.profiler trace that may hold no more
+     than one launch of the kernel per call, K6's time per step of its
+     321-MB dependency chain, and the registers and spills of every
+     kernel (each template instance of K3 and K4) from the build's ptxas
+     log (kept beside the library, so a cached build reports them too);
   5. conformance path: ConformanceGpuEncoder over 1 intra + 2 inter
      synthetic 1920x1080 frames at q16; each chunk decoded by GpuDecoder
      (the native sequential C++ decoder takes these intra-motion frames)
@@ -44,7 +45,9 @@ Phases, one line each with the elapsed seconds:
   6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
      give byte-identical chunks with device="cpu" and on the card.
 The line before the last is a JSON object with each kernel's launches (K4
-once per pad set), error and times; the last line is the contract line
+once per pad set), error and times (K3's are its three-plane launch's,
+with its luma and chroma calls alone under luma_* and chroma_*); the last
+line is the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 
     python3 chip_smoke.py --profile
@@ -62,6 +65,7 @@ from __future__ import annotations
 import faulthandler
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -112,9 +116,10 @@ def cuda_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def device_ms(torch, fn, kernel, reps=10, traces=5):
-    """Mean device time in ms of one launch of the kernel named `kernel`
-    over `reps` calls of fn(), from a torch.profiler trace (the event
+def device_ms(torch, fn, kernel, reps=10, traces=5, per_call=1):
+    """Mean device time in ms of the `per_call` launches of the kernel
+    named `kernel` that one call of fn() makes, over `reps` calls, from a
+    torch.profiler trace (the event
     times above also hold the wrapper's host work). The trace records
     after a warm-up step, as the profiler's schedule has it: a trace that
     records from its first call loses that call's kernels. A trace may
@@ -122,7 +127,7 @@ def device_ms(torch, fn, kernel, reps=10, traces=5):
     phase 2b did so in some runs, while the next one held all of them),
     but it holds none that did not happen: such a trace is taken again,
     up to `traces` times, and the run fails if none holds a launch or one
-    holds more than one a call."""
+    holds more than `per_call` a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -151,14 +156,14 @@ def device_ms(torch, fn, kernel, reps=10, traces=5):
                 launches += e.count
             else:
                 others += e.count
-        if launches > reps:
+        if launches > reps * per_call:
             break
         if launches:
-            return total / launches / 1e3
+            return total / launches * per_call / 1e3
         log(f"{kernel}: trace {attempt} of {traces} holds no launch of it "
             f"({others} other device events)")
     fail(f"{kernel}: {launches} launches on the device in {reps} calls "
-         f"(one each expected)")
+         f"({per_call} each expected)")
 
 
 def compare(torch, name, got, want):
@@ -184,11 +189,16 @@ def compare(torch, name, got, want):
 def ptxas_usage(build_log):
     """Registers and spills per kernel from `nvcc -Xptxas -v` output:
     {short kernel name: "N registers, S bytes spill stores, L bytes spill
-    loads"}."""
+    loads"}, a template instance named with its arguments, as
+    "pred_planes_kernel<17,9>"."""
     out, name = {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = next((k for k in PORT_KERNELS if k in line), None)
+            args = name and re.search(re.escape(name) + r"I((?:Li\d+E)+)E",
+                                      line)
+            if args:
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">"
             spill = "spills not reported"
         elif name and "spill stores" in line:
             spill = line.strip()
@@ -197,6 +207,17 @@ def ptxas_usage(build_log):
             out[name] = f"{regs}, {spill}"
             name = None
     return out
+
+
+def pred_planes_bytes(args, H, W):
+    """The bytes K4 must move for pred_planes(*args): each predicted pixel
+    reads one ring sample (its sub-pel neighbour is the next pixel's
+    base) and intra MBs read none; the seven per-MB fields at the widths
+    passed (flags as bytes on the main path); three int32 planes."""
+    fields, zero = args[3:10], args[9]
+    predicted = int((~zero).sum()) * (16 * 16 + 2 * 8 * 8)
+    return (predicted * 2 + sum(f.numel() * f.element_size() for f in fields)
+            + H * W * 3 // 2 * 4)
 
 
 def phase_kernels(torch, np, gpu):
@@ -295,11 +316,13 @@ def phase_kernels(torch, np, gpu):
         + n * 17,
         ops=n * 1089 * 256, max_abs_err=k2_err)
 
-    # ---- K3: luma and chroma windows, motion in [-16, 16] and beyond
+    # ---- K3: the three-plane launch of the main path and the luma and
+    # chroma calls alone, motion in [-16, 16] and beyond
     mx = t(rng.integers(-16, 17, n), torch.int32)
     my = t(rng.integers(-16, 17, n), torch.int32)
     mx[:64] = 40          # offsets the window clamps
     my[64:128] = -40
+    ring3 = (ring_y, ring_u, ring_v)
     k3_err = 0
     for label, planes, bx, by, blk, pad in (
             ("luma", ring_y, mx, my, 18, 17),
@@ -310,20 +333,45 @@ def phase_kernels(torch, np, gpu):
                      lambda: cp.gather_windows_plain(planes, slot, bx, by,
                                                      blk, pad), label)
         k3_err = max(k3_err, e)
-    log("K3: equal to the plain version (luma, chroma, clamped offsets)")
-    # the luma call (18 x 18 windows, pad 17) and a chroma call (10 x 10,
-    # pad 9; two of them and one luma call per reference of a fast inter
-    # frame): one slot's plane read, the offsets, the windows written
+    _, e = check("K3 gather_windows_yuv",
+                 lambda: cp.gather_windows_yuv(ring3, slot, mx, my),
+                 lambda: cp.gather_windows_yuv_plain(ring3, slot, mx, my),
+                 "Y, U and V")
+    k3_err = max(k3_err, e)
+    log("K3: equal to the plain version (Y, U and V in one launch; luma and "
+        "chroma alone; clamped offsets)")
+    # per call: one slot's plane read, the offsets, the windows written;
+    # the three-plane launch (one per reference of a fast inter frame)
+    # reads a luma and two chroma planes and the offsets once, and writes
+    # a luma and two chroma (10 x 10, pad 9) windows per MB
+    offsets = 2 * n * 4
+    luma = H * W * 2 + n * 18 * 18 * 4
+    chroma = H * W // 4 * 2 + n * 10 * 10 * 4
+    calls = dict(
+        luma=(lambda: cp.gather_windows(ring_y, slot, mx, my, 18, 17),
+              lambda: cp.gather_windows_plain(ring_y, slot, mx, my, 18, 17),
+              luma + offsets),
+        chroma=(lambda: cp.gather_windows(ring_u, slot, mx >> 1, my >> 1, 10,
+                                          9),
+                lambda: cp.gather_windows_plain(ring_u, slot, mx >> 1,
+                                                my >> 1, 10, 9),
+                chroma + offsets))
     recs["K3"] = dict(
-        ms=cuda_ms(torch, lambda: cp.gather_windows(ring_y, slot, mx, my, 18,
-                                                    17), 10),
-        plain_ms=cuda_ms(torch, lambda: cp.gather_windows_plain(
-            ring_y, slot, mx, my, 18, 17), 3),
-        bytes=H * W * 2 + 2 * n * 4 + n * 18 * 18 * 4, ops=0,
-        chroma_ms=cuda_ms(torch, lambda: cp.gather_windows(
-            ring_u, slot, mx >> 1, my >> 1, 10, 9), 10),
-        chroma_bytes=H * W // 4 * 2 + 2 * n * 4 + n * 10 * 10 * 4,
+        ms=cuda_ms(torch, lambda: cp.gather_windows_yuv(ring3, slot, mx, my),
+                   10),
+        device_ms=device_ms(torch, lambda: cp.gather_windows_yuv(
+            ring3, slot, mx, my), "gather_windows_kernel"),
+        plain_ms=cuda_ms(torch, lambda: cp.gather_windows_yuv_plain(
+            ring3, slot, mx, my), 3),
+        bytes=luma + 2 * chroma + offsets, ops=0,
         max_abs_err=k3_err)
+    for label, (kern, plain, nbytes) in calls.items():
+        recs["K3"].update({
+            f"{label}_ms": cuda_ms(torch, kern, 10),
+            f"{label}_device_ms": device_ms(torch, kern,
+                                            "gather_windows_kernel"),
+            f"{label}_plain_ms": cuda_ms(torch, plain, 3),
+            f"{label}_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
 
     # ---- K4: every slot, sub-pel both amounts, intra zeroing
     slots = t(rng.integers(0, 4, n), torch.int32)
@@ -335,15 +383,12 @@ def phase_kernels(torch, np, gpu):
     _, k4_err = check("K4 pred_planes", lambda: cp.pred_planes(*args),
                       lambda: cp.pred_planes_plain(*args), "random")
     log("K4: equal to the plain version")
-    # each predicted pixel reads one ring pixel (its sub-pel neighbour is
-    # the next pixel's base), intra MBs read none; 7 int32 fields per MB;
-    # three int32 planes written
-    predicted = int((~zero).sum()) * (16 * 16 + 2 * 8 * 8)
     recs["K4"] = dict(
         ms=cuda_ms(torch, lambda: cp.pred_planes(*args), 10),
+        device_ms=device_ms(torch, lambda: cp.pred_planes(*args),
+                            "pred_planes_kernel"),
         plain_ms=cuda_ms(torch, lambda: cp.pred_planes_plain(*args), 3),
-        bytes=predicted * 2 + 7 * n * 4 + H * W * 3 // 2 * 4,
-        ops=0, max_abs_err=k4_err)
+        bytes=pred_planes_bytes(args, H, W), ops=0, max_abs_err=k4_err)
     return recs
 
 
@@ -386,12 +431,12 @@ def phase_kernels_conformance(torch, np, gpu, H=1088, W=1920):
     k4_err = compare(torch, "K4 pred_planes (33/17)", got,
                      cp.pred_planes_plain(*args))
     log("K4 at 33/17: equal to the plain version")
-    predicted = int((~args[9]).sum()) * (16 * 16 + 2 * 8 * 8)
     recs["K4w"] = dict(
         ms=cuda_ms(torch, lambda: cp.pred_planes(*args), 10),
+        device_ms=device_ms(torch, lambda: cp.pred_planes(*args),
+                            "pred_planes_kernel"),
         plain_ms=cuda_ms(torch, lambda: cp.pred_planes_plain(*args), 3),
-        bytes=predicted * 2 + 7 * n * 4 + H * W * 3 // 2 * 4,
-        ops=0, max_abs_err=k4_err)
+        bytes=pred_planes_bytes(args, H, W), ops=0, max_abs_err=k4_err)
 
     # ---- K5: frame index 3, so offsets 1, 2, 3 read slots 2, 1, 0
     hdr = torch.tensor([3, 16], dtype=torch.int32, device=dev)
@@ -661,6 +706,10 @@ def phase_main(torch, np, gpu):
     for name, count in launches.items():
         if count == 0:
             fail(f"main path: kernel {name} was never launched")
+    if launches["gather_windows"] != launches["dense_select"]:
+        fail(f"main path: {launches['gather_windows']} K3 launches for "
+             f"{launches['dense_select']} reference searches (one three-plane "
+             f"launch each expected)")
     mse = float(np.mean([np.mean((o.astype(np.float64) - f) ** 2)
                          for o, f in zip(outs, frames)]))
     summary = dict(
@@ -698,7 +747,7 @@ PROFILE_STAGES = (
     ("native", "yuv5d_wire_to_rgb"), ("wire", "unpack_yuv5d"),
     ("wire", "pack_encode_wire"), ("wire", "pack_yuv5d_wire"),
     ("motion", "inter_search"), ("cuda_motion", "chroma_max_maps"),
-    ("cuda_motion", "dense_select"), ("cuda_pred", "gather_windows"),
+    ("cuda_motion", "dense_select"), ("cuda_pred", "gather_windows_yuv"),
     ("cuda_pred", "pred_planes"), ("engine", "quantize_planes"),
     ("engine", "reconstruct"), ("deblock", "deblock_frame"),
     ("ops", "fdct8"), ("cuda_inter", "inter_search"),
@@ -851,9 +900,14 @@ def main():
             else ""
         log(f"phase 2: {k} {r['ms']:.3f} ms{dev} (plain {r['plain_ms']:.3f} "
             f"ms) on {smi}")
-    log(f"phase 2: K3 chroma call {recs['K3']['chroma_ms']:.3f} ms, bound "
-        f"{recs['K3']['chroma_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms "
-        f"(bytes) on {smi}")
+    k3 = recs["K3"]
+    log(f"phase 2: K3 is the three-plane launch; bound "
+        f"{k3['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) on {smi}")
+    for label in ("luma", "chroma"):
+        log(f"phase 2: K3 {label} call alone {k3[label + '_ms']:.3f} ms, "
+            f"kernel alone {k3[label + '_device_ms']:.4f} ms (plain "
+            f"{k3[label + '_plain_ms']:.3f} ms), bound "
+            f"{k3[label + '_bound_ms']:.4f} ms (bytes) on {smi}")
 
     launches, summary = phase_main(torch, np, gpu)
     log(f"phase 3: 1920x1080 q16, {summary['frames']} frames on {smi}: "
@@ -881,7 +935,10 @@ def main():
         f"(MB, reference) searches frozen by the co-located candidate")
     usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
     for kname in ("chroma_max_kernel", "dense_select_kernel",
-                  "inter_search_kernel", "wave_kernel"):
+                  "gather_windows_kernel<0>", "gather_windows_kernel<1>",
+                  "gather_windows_kernel<2>", "pred_planes_kernel<17,9>",
+                  "pred_planes_kernel<33,17>", "inter_search_kernel",
+                  "wave_kernel"):
         if kname not in usage:
             fail(f"ptxas reported nothing for {kname}")
         log(f"phase 2b: {kname}: {usage[kname]}")
@@ -928,10 +985,9 @@ def main():
             library_ms=None))
         if "device_ms" in r:
             kernels[-1]["device_ms"] = r["device_ms"]
-        if "chroma_ms" in r:    # K3's chroma call beside its luma call
-            kernels[-1].update(
-                chroma_ms=r["chroma_ms"],
-                chroma_bound_ms=r["chroma_bytes"] / HBM_BYTES_PER_S * 1e3)
+        # K3's luma and chroma calls alone beside its three-plane launch
+        kernels[-1].update({k: v for k, v in r.items()
+                            if k.startswith(("luma_", "chroma_"))})
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

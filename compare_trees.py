@@ -3,6 +3,7 @@
 CUDA card, in turns, end to end and per kernel.
 
     python3 compare_trees.py PARENT_SRC CHANGE_SRC
+    python3 compare_trees.py --pred-kernels PARENT_SRC CHANGE_SRC
 
 PARENT_SRC and CHANGE_SRC are the `src` directories of two checkouts
 (unpack a commit's with `git archive <commit> src | tar -x -C DIR`). Each
@@ -15,16 +16,33 @@ line, on seeded 1920x1080 content at q16:
     inter frames' encode fps;
   * each kernel of the checkout's gpu/csrc (every __global__ function):
     device ms and launches in one more inter frame of each path, from a
-    torch.profiler trace.
+    torch.profiler trace;
+  * the sha256 of each path's stream (the chunks of the timed frames), so
+    that a change that must keep the bytes shows that it did.
+With --pred-kernels a turn times K3 (gather_windows) and K4
+(pred_planes) call by call instead, each checked exact against its plain
+version (chip_smoke.compare), on seeded 1920x1088 inputs of the ranges
+chip_smoke.py's phase 2 uses (ring planes in -300..559, motion in
+-16..16 with MBs at +-40 that the windows clamp; K4 with every slot, both
+lerp amounts and a fifth of the MBs intra, motion up to the pad): K3's
+luma call and chroma call alone, its three windows of one reference
+(gather_windows_yuv, or the three single-plane calls in a checkout
+without it), K4 at pads 17/9 and 33/17; per call the device time of its
+launches from a torch.profiler trace of 20 calls (chip_smoke.device_ms),
+their count, and the median CUDA-event time of single calls (host work
+included, chip_smoke.cuda_ms).
 The turns run in the order P, C, C, P (P the parent, C the change), so
 that drift of the card or the host shows as a difference between the two
-turns of one checkout. The first line printed is the
-card's name and power limit; the last is a JSON object with every turn.
-Exits non-zero without a CUDA device or when a turn fails.
+turns of one checkout. The first line printed is the card's name and
+power limit, then one line per turn; the last is a JSON object with
+every turn. Exits non-zero without a CUDA device, when a turn fails, or
+(end to end) when a turn's fast or conformance stream differs from the
+first turn's, after printing every turn.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -86,15 +104,21 @@ def run_turn(src):
     enc, dec = GpuEncoder(), GpuDecoder()
     enc.set_quality(16)
     enc_s, dec_s = [], []
+    fast_sha, conf_sha = hashlib.sha256(), hashlib.sha256()
     for f in frames[:5]:
         chunk, s = timed(lambda: enc.encode(f))
+        fast_sha.update(chunk)
         enc_s.append(s)
         dec_s.append(timed(lambda: dec.decode(chunk))[1])
     fast_kernels = kernels_of(lambda: dec.decode(enc.encode(frames[5])))
 
     cenc = ConformanceGpuEncoder()
     cenc.set_quality(16)
-    conf_s = [timed(lambda: cenc.encode(f))[1] for f in frames[:3]]
+    conf_s = []
+    for f in frames[:3]:
+        chunk, s = timed(lambda: cenc.encode(f))
+        conf_sha.update(chunk)
+        conf_s.append(s)
     conf_kernels = kernels_of(lambda: cenc.encode(frames[3]))
     return {"src": src,
             "fast_encode_fps": 4 / sum(enc_s[1:]),
@@ -102,15 +126,93 @@ def run_turn(src):
             "conformance_encode_fps": 2 / sum(conf_s[1:]),
             "fast_encode_ms": [s * 1e3 for s in enc_s],
             "conformance_encode_ms": [s * 1e3 for s in conf_s],
+            "fast_stream_sha256": fast_sha.hexdigest(),
+            "conformance_stream_sha256": conf_sha.hexdigest(),
             "fast_frame_kernels": fast_kernels,
             "conformance_frame_kernels": conf_kernels}
 
 
+def run_pred_turn(src):
+    """One --pred-kernels turn on the checkout whose `src` is given."""
+    sys.path.insert(0, src)
+    import numpy as np
+    import torch
+
+    from cairo_tpu_torch.gpu import _build, cuda_pred as cp
+    from chip_smoke import compare, cuda_ms, device_ms
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    h, w = 1088, 1920
+    n = (h // 16) * (w // 16)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
+
+    ring = tuple(t(rng.integers(-300, 560, (4,) + s), torch.int16)
+                 for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    slot = torch.tensor([2], dtype=torch.int32, device=dev)
+    mx = t(rng.integers(-16, 17, n), torch.int32)
+    my = t(rng.integers(-16, 17, n), torch.int32)
+    mx[:64] = 40
+    my[64:128] = -40
+
+    def record(name, fn, plain, kernel, per_call=1):
+        got = fn()
+        torch.cuda.synchronize()
+        return dict(err=compare(torch, name, got, plain()),
+                    device_ms=device_ms(torch, fn, kernel, 20,
+                                        per_call=per_call),
+                    launches=per_call, events_ms=cuda_ms(torch, fn, 20))
+
+    out = {"src": src}
+    out["k3_luma"] = record(
+        "K3 luma", lambda: cp.gather_windows(ring[0], slot, mx, my, 18, 17),
+        lambda: cp.gather_windows_plain(ring[0], slot, mx, my, 18, 17),
+        "gather_windows_kernel")
+    out["k3_chroma"] = record(
+        "K3 chroma",
+        lambda: cp.gather_windows(ring[1], slot, mx >> 1, my >> 1, 10, 9),
+        lambda: cp.gather_windows_plain(ring[1], slot, mx >> 1, my >> 1, 10,
+                                        9), "gather_windows_kernel")
+    three = tuple(zip(ring, (mx, mx >> 1, mx >> 1), (my, my >> 1, my >> 1),
+                      (18, 10, 10), (17, 9, 9)))
+    yuv = getattr(cp, "gather_windows_yuv", None)
+    out["k3_yuv"] = record(
+        "K3 Y, U and V",
+        (lambda: yuv(ring, slot, mx, my)) if yuv else lambda: tuple(
+            cp.gather_windows(r, slot, x, y, b, p) for r, x, y, b, p in three),
+        lambda: tuple(cp.gather_windows_plain(r, slot, x, y, b, p)
+                      for r, x, y, b, p in three),
+        "gather_windows_kernel", 1 if yuv else 3)
+    for pads, seed in (((17, 9), 1), ((33, 17), 2)):
+        r = np.random.default_rng(seed)
+        reach = pads[0] - 2
+        kx = t(r.integers(-reach, reach + 1, n), torch.int32)
+        ky = t(r.integers(-reach, reach + 1, n), torch.int32)
+        kx[:64] = 40
+        ky[64:128] = -40
+        args = (*ring, t(r.integers(0, 4, n), torch.int32), kx, ky,
+                t(r.random(n) < 0.5, torch.bool),
+                t(r.random(n) < 0.5, torch.bool),
+                t(r.integers(0, 8, n), torch.int32),
+                t(r.random(n) < 0.2, torch.bool), *pads)
+        out[f"k4_{pads[0]}"] = record(
+            f"K4 {pads}", lambda: cp.pred_planes(*args),
+            lambda: cp.pred_planes_plain(*args), "pred_planes_kernel")
+    return out
+
+
 def main():
     args = sys.argv[1:]
-    if args[:1] == ["--turn"]:
-        print(json.dumps(run_turn(os.path.abspath(args[1]))), flush=True)
+    turn = {"--turn": run_turn, "--pred-turn": run_pred_turn}
+    if args[:1] and args[0] in turn:
+        print(json.dumps(turn[args[0]](os.path.abspath(args[1]))),
+              flush=True)
         return
+    pred = args[:1] == ["--pred-kernels"]
+    args = args[1:] if pred else args
     if len(args) != 2:
         raise SystemExit(__doc__)
     import torch
@@ -125,18 +227,29 @@ def main():
     turns = []
     for who in "PCCP":
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--turn", trees[who]], capture_output=True,
-                              text=True, timeout=TURN_TIMEOUT_S)
+                               "--pred-turn" if pred else "--turn",
+                               trees[who]], capture_output=True, text=True,
+                              timeout=TURN_TIMEOUT_S)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout + proc.stderr)
             raise SystemExit(f"compare_trees: turn {who} failed")
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         rec["tree"] = who
-        print(f"{who}: fast encode {rec['fast_encode_fps']:.3f} fps, decode "
-              f"{rec['fast_decode_fps']:.3f} fps, conformance "
-              f"{rec['conformance_encode_fps']:.3f} fps", flush=True)
+        if pred:
+            print(f"{who}: device ms per call " + ", ".join(
+                f"{k} {v['device_ms']:.4f}" for k, v in rec.items()
+                if isinstance(v, dict)), flush=True)
+        else:
+            print(f"{who}: fast encode {rec['fast_encode_fps']:.3f} fps, "
+                  f"decode {rec['fast_decode_fps']:.3f} fps, conformance "
+                  f"{rec['conformance_encode_fps']:.3f} fps", flush=True)
         turns.append(rec)
     print(json.dumps({"card": smi, "turns": turns}), flush=True)
+    differ = [k for k in ("fast_stream_sha256", "conformance_stream_sha256")
+              if not pred and len({t[k] for t in turns}) > 1]
+    if differ:
+        raise SystemExit(f"compare_trees: streams differ between turns "
+                         f"({', '.join(differ)})")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,10 @@ adds one to LAUNCHES[name].
 
   * gather_windows (K3) replaces pallas_pred.gather_windows
     (pallas_pred.py:313); plain version: extract.extract_blocks over
-    extract.mb_windows, as motion.py:454-463 does.
+    extract.mb_windows, as motion.py:454-463 does. gather_windows_yuv
+    launches the same kernel once for the three calls of motion.py:448-453
+    (Y at 18/17, U and V at 10/9 with offsets (mx >> 1, my >> 1)); its
+    plain version is those three calls.
   * pred_planes (K4) replaces pallas_pred.pred_planes (pallas_pred.py:221);
     plain version: the XLA branch of engine._gather_pred (engine.py:94-104)
     with motion.pred_block_from_windows (motion.py:374) at the fast-mode
@@ -37,8 +40,37 @@ DIRS = ((-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0), (-1, 1), (0, 1), (1, 1))
 LAUNCHES = {"gather_windows": 0, "pred_planes": 0, "pred_planes_wide": 0}
 
 
+# the geometries the kernels are built for: K3's (block, pad), luma then
+# chroma, and K4's (ypad, cpad)
+WINDOWS = ((MB + 2, Y_PAD), (MB // 2 + 2, C_PAD))
+PRED_PADS = ((Y_PAD, C_PAD), (WIDE_YPAD, WIDE_CPAD))
+# K4's per-MB field types: ints as int32, flags as bytes (the first type
+# of each is what another type is converted to)
+_INT = (I32,)
+_FLAG = (torch.bool, torch.uint8)
+
+
 def _slot_index(slot, device):
     return torch.as_tensor(slot, dtype=I32, device=device).reshape(1)
+
+
+def _check_ring(t, name, shape):
+    """A ring stack as the kernels read it: addressed in 32 bits within a
+    plane, rows of 4-sample words read as aligned 8-byte loads (K4)."""
+    _build.check(t, name, torch.int16, shape)
+    if shape[-2] * shape[-1] >= 2 ** 31:
+        raise ValueError(f"{name}: planes of 2^31 samples or more")
+    if t.data_ptr() % 8:
+        raise ValueError(f"{name}: expected an 8-byte aligned tensor")
+
+
+def _field(t, name, n, kinds):
+    """A per-MB field as the kernel takes it: as it comes when its type is
+    one of `kinds`, else converted to the first."""
+    if t.dtype not in kinds or not t.is_contiguous():
+        t = t.to(kinds[0]).contiguous()
+    _build.check(t, name, t.dtype, (n,))
+    return t
 
 
 # ----------------------------------------------------------------- K3
@@ -52,9 +84,13 @@ def gather_windows_plain(planes, slot, mx, my, block, pad):
 def gather_windows(planes, slot, mx, my, block, pad):
     """(N, block, block) int32 per-MB windows at offset (mx - 1, my - 1)
     from ring slot `slot` (an int32 scalar tensor). planes: (RING, H, W)
-    int16; block = mb_size + 2; pad = the prediction window pad."""
+    int16; block = mb_size + 2; pad = the prediction window pad. The
+    kernel is built for the luma and chroma geometries, WINDOWS."""
     if planes.device.type == "cpu":
         return gather_windows_plain(planes, slot, mx, my, block, pad)
+    if (block, pad) not in WINDOWS:
+        raise ValueError(f"gather_windows: (block, pad) must be one of "
+                         f"{WINDOWS}, got {(block, pad)}")
     ring, h, w = planes.shape
     mb = block - 2
     if h % mb or w % mb:
@@ -63,7 +99,7 @@ def gather_windows(planes, slot, mx, my, block, pad):
     n = (h // mb) * (w // mb)
     dev = planes.device
     slot_t = _slot_index(slot, dev)
-    _build.check(planes, "planes", torch.int16)
+    _check_ring(planes, "planes", (ring, h, w))
     _build.check(slot_t, "slot", I32, (1,))
     _build.check(mx, "mx", I32, (n,))
     _build.check(my, "my", I32, (n,))
@@ -74,6 +110,45 @@ def gather_windows(planes, slot, mx, my, block, pad):
                   out.data_ptr())
     LAUNCHES["gather_windows"] += 1
     return out
+
+
+def gather_windows_yuv_plain(ring, slot, mx, my):
+    (yb, yp), (cb, cp) = WINDOWS
+    return (gather_windows_plain(ring[0], slot, mx, my, yb, yp),
+            gather_windows_plain(ring[1], slot, mx >> 1, my >> 1, cb, cp),
+            gather_windows_plain(ring[2], slot, mx >> 1, my >> 1, cb, cp))
+
+
+def gather_windows_yuv(ring, slot, mx, my):
+    """The sub-pel windows of one reference in all three planes, one
+    launch: gather_windows over ring_y at 18/17 and over ring_u, ring_v
+    at 10/9 with offsets (mx >> 1, my >> 1). ring: (ring_y, ring_u,
+    ring_v) int16 stacks; returns ((N, 18, 18), (N, 10, 10), (N, 10, 10))
+    int32, views of one buffer."""
+    if ring[0].device.type == "cpu":
+        return gather_windows_yuv_plain(ring, slot, mx, my)
+    _, h, w = ring[0].shape
+    if h % MB or w % MB:
+        raise ValueError("gather_windows_yuv: plane dims must be multiples "
+                         "of 16")
+    n = (h // MB) * (w // MB)
+    dev = ring[0].device
+    slot_t = _slot_index(slot, dev)
+    _check_ring(ring[0], "ring_y", (RING, h, w))
+    _check_ring(ring[1], "ring_u", (RING, h // 2, w // 2))
+    _check_ring(ring[2], "ring_v", (RING, h // 2, w // 2))
+    _build.check(slot_t, "slot", I32, (1,))
+    _build.check(mx, "mx", I32, (n,))
+    _build.check(my, "my", I32, (n,))
+    (yb, _), (cb, _) = WINDOWS
+    buf = torch.empty(n * (yb * yb + 2 * cb * cb), dtype=I32, device=dev)
+    wy, wu, wv = buf.split([n * yb * yb, n * cb * cb, n * cb * cb])
+    fn = _build.kernel_fn("cairo_gather_windows_yuv", "ppppppiipppp")
+    _build.launch(fn, dev, *(r.data_ptr() for r in ring), slot_t.data_ptr(),
+                  mx.data_ptr(), my.data_ptr(), h, w, wy.data_ptr(),
+                  wu.data_ptr(), wv.data_ptr())
+    LAUNCHES["gather_windows"] += 1
+    return (wy.view(n, yb, yb), wu.view(n, cb, cb), wv.view(n, cb, cb))
 
 
 # ----------------------------------------------------------------- K4
@@ -134,9 +209,11 @@ def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
                 sp_index, zero, ypad=Y_PAD, cpad=C_PAD):
     """Prediction planes (pred_y, pred_u, pred_v), int32, of the ring plane
     shapes. ring_*: (RING, H, W) int16; slot/mx/my/sp_index: (N,) int;
-    sp_pred/sp_amount/zero: (N,) bool. The motion reach clamps to the
-    window pads: ypad/cpad, the fast-mode Y_PAD/C_PAD (17/9) by default;
-    the conformance encoder passes WIDE_YPAD/WIDE_CPAD (33/17)."""
+    sp_pred/sp_amount/zero: (N,) bool or uint8. The kernel takes int32
+    ints and bool or uint8 flags as they come and converts other types
+    first. The motion reach clamps to the window pads: ypad/cpad, the
+    fast-mode Y_PAD/C_PAD (17/9) by default; the conformance encoder
+    passes WIDE_YPAD/WIDE_CPAD (33/17), PRED_PADS."""
     if ring_y.device.type == "cpu":
         return pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my,
                                  sp_pred, sp_amount, sp_index, zero, ypad,
@@ -144,19 +221,21 @@ def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
     ring, h, w = ring_y.shape
     if h % MB or w % MB:
         raise ValueError("pred_planes: plane dims must be multiples of 16")
+    if (ypad, cpad) not in PRED_PADS:
+        raise ValueError(f"pred_planes: (ypad, cpad) must be one of "
+                         f"{PRED_PADS}, got {(ypad, cpad)}")
     dev = ring_y.device
     n = (h // MB) * (w // MB)
-    _build.check(ring_y, "ring_y", torch.int16, (RING, h, w))
-    _build.check(ring_u, "ring_u", torch.int16, (RING, h // 2, w // 2))
-    _build.check(ring_v, "ring_v", torch.int16, (RING, h // 2, w // 2))
-    per_mb = [t.to(I32).contiguous() for t in
-              (slot, mx, my, sp_pred, sp_amount, sp_index, zero)]
-    for t, name in zip(per_mb, ("slot", "mx", "my", "sp_pred", "sp_amount",
-                                "sp_index", "zero")):
-        _build.check(t, name, I32, (n,))
-    out_y = torch.empty((h, w), dtype=I32, device=dev)
-    out_u = torch.empty((h // 2, w // 2), dtype=I32, device=dev)
-    out_v = torch.empty((h // 2, w // 2), dtype=I32, device=dev)
+    _check_ring(ring_y, "ring_y", (RING, h, w))
+    _check_ring(ring_u, "ring_u", (RING, h // 2, w // 2))
+    _check_ring(ring_v, "ring_v", (RING, h // 2, w // 2))
+    per_mb = [_field(t, name, n, kinds) for t, name, kinds in (
+        (slot, "slot", _INT), (mx, "mx", _INT), (my, "my", _INT),
+        (sp_pred, "sp_pred", _FLAG), (sp_amount, "sp_amount", _FLAG),
+        (sp_index, "sp_index", _INT), (zero, "zero", _FLAG))]
+    cs = h * w // 4
+    buf = torch.empty(h * w + 2 * cs, dtype=I32, device=dev)
+    out_y, out_u, out_v = buf.split([h * w, cs, cs])
     fn = _build.kernel_fn("cairo_pred_planes", "ppppppppppiiiipppp")
     _build.launch(fn, dev, ring_y.data_ptr(), ring_u.data_ptr(),
                   ring_v.data_ptr(), *(t.data_ptr() for t in per_mb),
@@ -164,4 +243,5 @@ def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
                   out_v.data_ptr())
     LAUNCHES["pred_planes" if (ypad, cpad) == (Y_PAD, C_PAD)
              else "pred_planes_wide"] += 1
-    return out_y, out_u, out_v
+    return (out_y.view(h, w), out_u.view(h // 2, w // 2),
+            out_v.view(h // 2, w // 2))

@@ -23,8 +23,6 @@ from . import cuda_motion, cuda_pred, extract, ops
 MB = tables.MACROBLOCK_SIZE
 SAD_THRESHOLD = tables.MOTION_SAD_THRESHOLD
 DENSE_R = tables.MOTION_SEARCH_RADIUS
-Y_WPAD = cuda_pred.Y_PAD
-C_WPAD = cuda_pred.C_PAD
 I32 = torch.int32
 
 # (di, dj, sp index) in the reference's evaluation order
@@ -125,11 +123,7 @@ def inter_search(src, src_planes, ref_planes, ring, slot, px, py, quality,
         src_planes[0], ref_planes[0], cmax, x0, width, height, mad_thr)
 
     # ---- sub-pel refinement windows (per MB, centred on the best mv)
-    ywin = cuda_pred.gather_windows(ring[0], slot, mx, my, MB + 2, Y_WPAD)
-    uwin = cuda_pred.gather_windows(ring[1], slot, mx >> 1, my >> 1,
-                                    MB // 2 + 2, C_WPAD)
-    vwin = cuda_pred.gather_windows(ring[2], slot, mx >> 1, my >> 1,
-                                    MB // 2 + 2, C_WPAD)
+    ywin, uwin, vwin = cuda_pred.gather_windows_yuv(ring, slot, mx, my)
     best_y = ywin[:, 1:17, 1:17]
     best_u = uwin[:, 1:9, 1:9]
     best_v = vwin[:, 1:9, 1:9]

@@ -358,3 +358,101 @@ def test_chroma_max_maps_edges(dev, size, kind):
     ru, rv = (_t(a, torch.int16).to(dev) for a in ref)
     _eq(cuda_motion.chroma_max_maps(su, sv, ru, rv),
         cuda_motion.chroma_max_maps_plain(su, sv, ru, rv))
+
+
+# frame sizes (w, h) for K3 and K4: one MB column, one MB row, 1080p
+PRED_SIZES = [(16, 96), (96, 16), (1920, 1088)]
+
+
+def _pred_ring(rng, h, w, dev):
+    return tuple(_t(rng.integers(-600, 600, (RING,) + s), torch.int16)
+                 .to(dev) for s in ((h, w), (h // 2, w // 2),
+                                    (h // 2, w // 2)))
+
+
+def _windows_exact(ring, slot, mx, my):
+    """K3's three-plane and single-plane launches against their plain
+    versions, each called twice with identical outputs."""
+    s = torch.tensor([slot], dtype=torch.int32, device=ring[0].device)
+    want = cuda_pred.gather_windows_yuv_plain(ring, s, mx, my)
+    for _ in range(2):
+        for g, wnt in zip(cuda_pred.gather_windows_yuv(ring, s, mx, my),
+                          want, strict=True):
+            _eq(g, wnt)
+        _eq(cuda_pred.gather_windows(ring[0], s, mx, my, 18, 17), want[0])
+        _eq(cuda_pred.gather_windows(ring[1], s, mx >> 1, my >> 1, 10, 9),
+            want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", range(RING))
+@pytest.mark.parametrize("size", PRED_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_gather_windows_edges(dev, size, slot):
+    """K3 at one MB column, one MB row and 1080p, from each ring slot, with
+    motion in [-20, 20] (the first MBs at +-40)."""
+    w, h = size
+    rng = np.random.default_rng(w + h + slot)
+    ring = _pred_ring(rng, h, w, dev)
+    n = (h // 16) * (w // 16)
+    mx = rng.integers(-20, 21, n).astype(np.int32)
+    my = rng.integers(-20, 21, n).astype(np.int32)
+    mx[:max(1, n // 4)], my[:max(1, n // 4)] = 40, -40
+    _windows_exact(ring, slot, _t(mx).to(dev), _t(my).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reach", [-40, 40], ids=["low", "high"])
+def test_gather_windows_all_clamped(dev, reach):
+    """K3 with every MB's offset clamped by its window, low and high, on
+    odd and even offsets (the chroma shift of -17 is -9)."""
+    rng = np.random.default_rng(90 + reach)
+    h, w = 96, 160
+    ring = _pred_ring(rng, h, w, dev)
+    n = (h // 16) * (w // 16)
+    mx = np.where(rng.random(n) < 0.5, reach, np.sign(reach) * 17)
+    my = np.where(rng.random(n) < 0.5, reach, np.sign(reach) * 19)
+    _windows_exact(ring, 1, _t(mx.astype(np.int32)).to(dev),
+                   _t(my.astype(np.int32)).to(dev))
+
+
+def _k4_fields(kind, n, reach, rng, dev):
+    """K4's per-MB fields: `slots` (slots -1..4, -1 and 4 give zero),
+    `sp_index` (sp_index in -5..12, clamped to 0..7), `all_intra`,
+    `no_intra`, `uint8` (the flags as uint8 instead of bool); each with
+    sub-pel at both amounts and motion in [-reach, reach] and beyond."""
+    lo, hi = (-1, 5) if kind == "slots" else (0, 4)
+    slot = rng.integers(lo, hi, n).astype(np.int32)
+    mx = rng.integers(-reach - 8, reach + 9, n).astype(np.int32)
+    my = rng.integers(-reach - 8, reach + 9, n).astype(np.int32)
+    spp, spa = rng.random(n) < 0.6, rng.random(n) < 0.5
+    spi = rng.integers(*((-5, 13) if kind == "sp_index" else (0, 8)),
+                       n).astype(np.int32)
+    zero = {"all_intra": np.ones(n, bool),
+            "no_intra": np.zeros(n, bool)}.get(kind, rng.random(n) < 0.2)
+    flags = [spp, spa, zero]
+    if kind == "uint8":
+        flags = [f.astype(np.uint8) for f in flags]
+    t = [_t(a).to(dev) for a in (slot, mx, my, *flags, spi)]
+    return t[0], t[1], t[2], t[3], t[4], t[6], t[5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slots", "sp_index", "all_intra",
+                                  "no_intra", "uint8"])
+@pytest.mark.parametrize("pads", [(17, 9), (33, 17)],
+                         ids=["17-9", "33-17"])
+def test_pred_planes_edges(dev, pads, kind):
+    """K4 at both pad sets against its plain version on bad slots,
+    sub-pel indices outside 0..7, all and no MBs intra and flags passed
+    as uint8, at 208x48 (39 MBs, a tail in every thread block's MB group)
+    and at 1080p; a second call gives identical planes."""
+    for w, h in ((208, 48), (1920, 1088)):
+        rng = np.random.default_rng(w + pads[0] + len(kind))
+        ring = _pred_ring(rng, h, w, dev)
+        fields = _k4_fields(kind, (h // 16) * (w // 16), pads[0] - 2, rng,
+                            dev)
+        want = cuda_pred.pred_planes_plain(*ring, *fields, *pads)
+        for _ in range(2):
+            for g, wnt in zip(cuda_pred.pred_planes(*ring, *fields, *pads),
+                              want, strict=True):
+                _eq(g, wnt)

@@ -162,8 +162,34 @@ def test_inter_search_tile_origin():
     _check_inter_search(sy, su, sv, ry, ru, rv, 16, x0=32, full_width=160)
 
 
+@pytest.mark.parametrize("slot", [0, 3])
+def test_inter_search_gathers_windows_once(slot, monkeypatch):
+    """motion.inter_search takes the sub-pel windows of Y, U and V from one
+    gather_windows_yuv call (one K3 launch on the card) and no
+    single-plane call, from the reference's ring slot while the other
+    slots hold other content, and still equals tpu.motion.inter_search."""
+    calls = []
+    yuv = cuda_pred.gather_windows_yuv
+
+    def counted(*args):
+        calls.append(args)
+        return yuv(*args)
+
+    def single(*args):
+        raise AssertionError("single-plane gather_windows called")
+
+    monkeypatch.setattr(cuda_pred, "gather_windows_yuv", counted)
+    monkeypatch.setattr(cuda_pred, "gather_windows", single)
+    sy, su, sv, ry, ru, rv = _content("shift", 48, 80, 9)
+    _check_inter_search(sy, su, sv, ry, ru, rv, 16, slot=slot,
+                        others=np.random.default_rng(slot))
+    assert len(calls) == 1
+
+
 def _check_inter_search(sy, su, sv, ry, ru, rv, quality, x0=0,
-                        full_width=None):
+                        full_width=None, slot=1, others=None):
+    """`others`: a numpy Generator that fills the ring slots other than
+    `slot` with random content (else they are zero)."""
     h, w = sy.shape
     n = (h // 16) * (w // 16)
     idx = np.arange(n)
@@ -177,10 +203,11 @@ def _check_inter_search(sy, su, sv, ry, ru, rv, quality, x0=0,
         tuple(refs), jmotion.pred_windows(tuple(refs)), jnp.asarray(px),
         jnp.asarray(py), quality, x0=x0, full_width=full_width)
 
-    slot = 1
     rings = []
     for p in (ry, ru, rv):
         stack = np.zeros((RING,) + p.shape, np.int16)
+        if others is not None:
+            stack[:] = others.integers(-300, 560, stack.shape)
         stack[slot] = p
         rings.append(_t(stack))
     got = tmotion.inter_search(
