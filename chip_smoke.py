@@ -37,24 +37,33 @@ Phases, one line each with the elapsed seconds:
      321-MB dependency chain, and the registers and spills of every
      kernel (each template instance of K3 and K4) from the build's ptxas
      log (kept beside the library, so a cached build reports them too);
+     K7 against its plain version on the inputs the wavefront decode of a
+     1080p conformance stream (1 intra + 1 inter frame, q16) gives it,
+     each frame's run twice, exact; its times on the inter frame's waves
+     (the intra frame's under intra_*);
   5. conformance path: ConformanceGpuEncoder over 1 intra + 2 inter
-     synthetic 1920x1080 frames at q16; each chunk decoded by GpuDecoder
-     (the native sequential C++ decoder takes these intra-motion frames)
-     must equal the encoder's reconstruction, and K4 at 33/17, K5 and K6
-     must each have been launched, K6 once per frame;
+     synthetic 1920x1080 frames at q16, each chunk decoded by GpuDecoder
+     on the device (the wavefront decode: K4 at 33/17 and K7); no frame may
+     take the host decoder, every decoded frame must equal the encoder's
+     reconstruction and the native sequential C++ decoder's output, K4 at
+     33/17, K5, K6 and K7 must each have been launched (K6 once per frame)
+     and K7 must have rebuilt intra-motion blocks; prints the decode fps
+     and the waves and members per frame;
   6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
-     give byte-identical chunks with device="cpu" and on the card.
+     give byte-identical chunks with device="cpu" and on the card, and
+     GpuDecoder decodes them to identical RGB on both, on the device path.
 The line before the last is a JSON object with each kernel's launches (K4
-once per pad set), error and times (K3's are its three-plane launch's,
-with its luma and chroma calls alone under luma_* and chroma_*); the last
-line is the contract line
+once per pad set; K7's in phase 5), error, times and ptxas registers (K3's
+are its three-plane launch's, with its luma and chroma calls alone under
+luma_* and chroma_*); the last line is the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 
     python3 chip_smoke.py --profile
 
 runs phases 0-1 and then torch.profiler traces of one 1080p inter frame
-through GpuEncoder and GpuDecoder and of one through
-ConformanceGpuEncoder, with one labelled range per pipeline stage: host
+through GpuEncoder and GpuDecoder, of one through ConformanceGpuEncoder
+and of one conformance chunk through GpuDecoder (the wavefront decode),
+with one labelled range per pipeline stage: host
 and device milliseconds per stage, the port's kernels' device time by
 kernel name, and all kernels' device time against the unprofiled wall
 time of the same work (busy share).
@@ -567,15 +576,93 @@ def phase_kernels_conformance(torch, np, gpu, H=1088, W=1920):
     return recs
 
 
+def wave_decode_work(args):
+    """(bytes, operations) K7 must move and do for wave_decode(*args): per
+    member its 384 samples read (a sub-pel neighbour is the next
+    sample's base, as for K4), its int32 residual and six int32 fields,
+    its 384 int16 samples written; the schedule rows in use (bi and bj,
+    int16). Per sample a residual add and wrap, and a blend for sub-pel
+    members: counted as 4 operations."""
+    bi, n_active, n_members = args[4], args[6], args[7]
+    p = bi.shape[1]
+    return (n_members * (384 * (2 + 4 + 2) + 6 * 4) + n_active * p * 4,
+            n_members * 384 * 4)
+
+
+def phase_kernels_wave_decode(torch, np, gpu):
+    """K7 against its plain version on the arguments the wavefront decode
+    of a 1080p conformance stream gives it; returns the kernel's record."""
+    from cairo_tpu_torch.synth import synth_frames
+
+    api, cwd = gpu["api"], gpu["cuda_wavedec"]
+    enc = api.ConformanceGpuEncoder()
+    enc.set_quality(16)
+    chunks = [enc.encode(f)
+              for f in synth_frames(1920, 1080, 2, seed=SEED % 983)]
+    calls, frame = {}, [0]
+    kernel = cwd.wave_decode
+
+    def record(planes, *rest):
+        calls[frame[0]] = (tuple(p.clone() for p in planes), *rest)
+        return kernel(planes, *rest)
+
+    dec = api.GpuDecoder()
+    cwd.wave_decode = record
+    try:
+        for i, c in enumerate(chunks):
+            frame[0] = i
+            dec.decode(c)
+    finally:
+        cwd.wave_decode = kernel
+    torch.cuda.synchronize()
+    if dec.host_frames or sorted(calls) != [0, 1]:
+        fail(f"K7: launched on frames {sorted(calls)} of the 1080p "
+             f"conformance stream, not on its intra and inter frame "
+             f"({dec.host_frames} host frames)")
+
+    def fresh(args):
+        return (tuple(p.clone() for p in args[0]), *args[1:])
+
+    err = 0
+    for i, args in sorted(calls.items()):
+        want = cwd.wave_decode_plain(*fresh(args))
+        runs = [kernel(*fresh(args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        compare(torch, f"K7 wave_decode (frame {i}, second run)", runs[1],
+                runs[0])
+        err = max(err, compare(torch, f"K7 wave_decode (frame {i})",
+                               runs[0], want))
+    log("K7: two runs identical and equal to the plain version at 1920x1080 "
+        "on " + ", ".join(f"frame {i} ({a[6]} waves, {a[7]} members)"
+                          for i, a in sorted(calls.items())))
+
+    def timed(args):
+        scratch = fresh(args)
+        nbytes, ops = wave_decode_work(args)
+        return dict(
+            ms=cuda_ms(torch, lambda: kernel(*scratch), 10),
+            device_ms=device_ms(torch, lambda: kernel(*scratch),
+                                "wave_decode_kernel", per_call=args[6]),
+            plain_ms=cuda_ms(torch, lambda: cwd.wave_decode_plain(*scratch),
+                             3),
+            bytes=nbytes, ops=ops, waves=args[6], members=args[7])
+
+    rec = timed(calls[1])
+    rec["max_abs_err"] = err
+    rec.update({f"intra_{k}": v for k, v in timed(calls[0]).items()})
+    return rec
+
+
 def phase_conformance(torch, np, gpu):
     """The conformance path at 1080p; returns (launch counts, summary)."""
-    from cairo_tpu_torch.cpuref import imaging
+    from cairo_tpu_torch import native
+    from cairo_tpu_torch.cpuref import imaging, stream
     from cairo_tpu_torch.synth import synth_frames
 
     api = gpu["api"]
     frames = synth_frames(1920, 1080, 3, seed=SEED % 991)
     counters = (gpu["cuda_pred"].LAUNCHES, gpu["cuda_inter"].LAUNCHES,
-                gpu["cuda_wave"].LAUNCHES)
+                gpu["cuda_wave"].LAUNCHES, gpu["cuda_wavedec"].LAUNCHES)
     for c in counters:
         for k in c:
             c[k] = 0
@@ -594,17 +681,33 @@ def phase_conformance(torch, np, gpu):
         recons.append(imaging.yuv420_to_rgb(
             arrays["ring_y"][slot], arrays["ring_u"][slot],
             arrays["ring_v"][slot], meta["width"], meta["height"]))
+    dec = api.GpuDecoder()
+    outs, dec_s, waves = [], [], []
+    for c in chunks:
+        t0 = time.perf_counter()
+        outs.append(dec.decode(c))
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0)
+        waves.append((dec.last_stats.get("waves"),
+                      dec.last_stats.get("members")))
     launches = {"pred_planes_wide": counters[0]["pred_planes_wide"],
                 "inter_search": counters[1]["inter_search"],
-                "wave_pass": counters[2]["wave_pass"]}
+                "wave_pass": counters[2]["wave_pass"],
+                **counters[3]}
     if launches["wave_pass"] != len(frames):
         fail(f"conformance path: {launches['wave_pass']} K6 launches for "
              f"{len(frames)} frames (one wave pass each expected)")
-    dec = api.GpuDecoder()
-    for i, (c, r) in enumerate(zip(chunks, recons)):
-        if not np.array_equal(dec.decode(c), r):
+    if dec.host_frames:
+        fail(f"conformance path: {dec.host_frames} frames took the host "
+             f"decoder")
+    for i, (o, r, h) in enumerate(zip(outs, recons, host_decode(
+            np, native, stream, chunks))):
+        if not np.array_equal(o, r):
             fail(f"conformance path: decoded frame {i} differs from the "
                  f"encoder's reconstruction")
+        if not np.array_equal(o, h):
+            fail(f"conformance path: frame {i} differs from the native C++ "
+                 f"decoder")
     for name, count in launches.items():
         if count == 0:
             fail(f"conformance path: kernel {name} was never launched")
@@ -613,7 +716,10 @@ def phase_conformance(torch, np, gpu):
     summary = dict(
         frames=len(frames), host_frames=dec.host_frames,
         inter_encode_fps=(len(frames) - 1) / sum(enc_s[1:]),
+        inter_decode_fps=(len(frames) - 1) / sum(dec_s[1:]),
         encode_ms=[round(s * 1e3, 1) for s in enc_s],
+        decode_ms=[round(s * 1e3, 1) for s in dec_s],
+        waves_members=waves,
         psnr_db=10 * np.log10(255.0 ** 2 / max(1e-9, mse)),
         kbits_per_frame=sum(len(c) for c in chunks) * 8 / len(chunks) / 1000,
         stage_ms={k: [round(x, 1) for x in v] for k, v in stages.items()})
@@ -623,11 +729,14 @@ def phase_conformance(torch, np, gpu):
 def phase_conformance_cpu_vs_card(gpu):
     from cairo_tpu_torch.synth import synth_frames
 
+    import numpy as np
+
     api = gpu["api"]
     for q in (4, 16, 29):
         frames = synth_frames(176, 144, 3, seed=SEED % 997 + q)
         cpu = api.ConformanceGpuEncoder(device="cpu")
         card = api.ConformanceGpuEncoder()
+        cpu_dec, card_dec = api.GpuDecoder(device="cpu"), api.GpuDecoder()
         for enc in (cpu, card):
             enc.set_quality(q)
         for i, f in enumerate(frames):
@@ -635,6 +744,12 @@ def phase_conformance_cpu_vs_card(gpu):
             if a != b:
                 fail(f"conformance: CPU and card chunks differ at q{q} frame "
                      f"{i} ({len(a)} vs {len(b)} bytes)")
+            if not np.array_equal(cpu_dec.decode(a), card_dec.decode(a)):
+                fail(f"conformance: CPU and card decodes differ at q{q} "
+                     f"frame {i}")
+        if cpu_dec.host_frames or card_dec.host_frames:
+            fail(f"conformance: q{q} frames took the host decoder "
+                 f"(CPU {cpu_dec.host_frames}, card {card_dec.host_frames})")
 
 
 def host_decode(np, native, stream, chunks):
@@ -751,10 +866,12 @@ PROFILE_STAGES = (
     ("cuda_pred", "pred_planes"), ("engine", "quantize_planes"),
     ("engine", "reconstruct"), ("deblock", "deblock_frame"),
     ("ops", "fdct8"), ("cuda_inter", "inter_search"),
-    ("cuda_wave", "wave_pass"), ("wavefront", "_conformance_tail"))
+    ("cuda_wave", "wave_pass"), ("wavefront", "_conformance_tail"),
+    ("wavefront", "conformance_decode_step"), ("engine", "residual"),
+    ("cuda_wavedec", "wave_decode"))
 PORT_KERNELS = ("chroma_max_kernel", "dense_select_kernel",
                 "gather_windows_kernel", "pred_planes_kernel",
-                "inter_search_kernel", "wave_kernel")
+                "inter_search_kernel", "wave_decode_kernel", "wave_kernel")
 
 
 def profile_frame(torch, smi, label, warm, timed, traced):
@@ -816,8 +933,9 @@ def profile_frame(torch, smi, label, warm, timed, traced):
 
 def phase_profile(torch, gpu, smi):
     """Host and device time per pipeline stage for one fast-mode inter
-    frame (encoded and decoded) and one conformance inter frame (encoded),
-    and the device's busy share against unprofiled runs of the same work."""
+    frame (encoded and decoded) and one conformance inter frame (encoded,
+    and decoded through the wavefront decode), and the device's busy
+    share against unprofiled runs of the same work."""
     import importlib
     from torch.profiler import record_function
 
@@ -850,9 +968,11 @@ def phase_profile(torch, gpu, smi):
         lambda: [fast(enc, dec, f) for f in frames[:2]],
         lambda: fast(enc, dec, frames[2]), lambda: fast(enc, dec, frames[3]))
 
+    chunks = []
+
     def conf(cenc, f):
         with record_function("stage.encode_frame"):
-            cenc.encode(f)
+            chunks.append(cenc.encode(f))
         torch.cuda.synchronize()
 
     cenc = gpu["api"].ConformanceGpuEncoder()
@@ -861,6 +981,21 @@ def phase_profile(torch, gpu, smi):
         torch, smi, "one 1920x1080 q16 conformance inter frame encoded",
         lambda: [conf(cenc, f) for f in frames[:2]],
         lambda: conf(cenc, frames[2]), lambda: conf(cenc, frames[3]))
+
+    def conf_dec(cdec, chunk):
+        with record_function("stage.decode_frame"):
+            cdec.decode(chunk)
+        torch.cuda.synchronize()
+
+    cdec = gpu["api"].GpuDecoder()
+    profile_frame(
+        torch, smi, "one 1920x1080 q16 conformance inter frame decoded "
+        "(wavefront decode)",
+        lambda: [conf_dec(cdec, c) for c in chunks[:2]],
+        lambda: conf_dec(cdec, chunks[2]), lambda: conf_dec(cdec, chunks[3]))
+    log(f"profile: the decoded conformance frames' (waves, members): "
+        f"{cdec.last_stats.get('waves')}, {cdec.last_stats.get('members')} "
+        f"(the last); host frames {cdec.host_frames}")
 
 
 def main():
@@ -880,15 +1015,16 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     from cairo_tpu_torch.gpu import (_build, api, cuda_inter, cuda_motion,
-                                     cuda_pred, cuda_wave, ops, wavefront)
+                                     cuda_pred, cuda_wave, cuda_wavedec, ops,
+                                     wavefront)
     gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred,
-               cuda_inter=cuda_inter, cuda_wave=cuda_wave, ops=ops,
-               wavefront=wavefront)
+               cuda_inter=cuda_inter, cuda_wave=cuda_wave,
+               cuda_wavedec=cuda_wavedec, ops=ops, wavefront=wavefront)
     secs = _build.build_all()
     log(f"phase 1: built kernels in {secs['kernels_s']:.1f}s and the native "
         f"library in {secs['native_s']:.1f}s")
     log("kernels: K1 chroma_max_maps, K2 dense_select, K3 gather_windows, "
-        "K4 pred_planes, K5 inter_search, K6 wave_pass")
+        "K4 pred_planes, K5 inter_search, K6 wave_pass, K7 wave_decode")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gpu, smi)
         faulthandler.cancel_dump_traceback_later()
@@ -923,7 +1059,8 @@ def main():
     log("phase 4: CPU and card chunks byte-identical at 176x144")
 
     recs.update(phase_kernels_conformance(torch, np, gpu))
-    for k in ("K4w", "K5", "K6"):
+    recs["K7"] = phase_kernels_wave_decode(torch, np, gpu)
+    for k in ("K4w", "K5", "K6", "K7"):
         r = recs[k]
         dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
             else ""
@@ -933,12 +1070,22 @@ def main():
         f"us per step of its {recs['K6']['steps']}-MB chain on {smi}")
     log(f"phase 2b: K5 timed input: {100 * recs['K5']['frozen']:.1f}% of the "
         f"(MB, reference) searches frozen by the co-located candidate")
+    k7 = recs["K7"]
+    log(f"phase 2b: K7 on {k7['waves']} waves, {k7['members']} members: "
+        f"{k7['ms']:.3f} ms, kernel alone {k7['device_ms']:.4f} ms, bound "
+        f"{k7['bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes) on {smi}")
+    log(f"phase 2b: K7 on the intra frame's {k7['intra_waves']} waves, "
+        f"{k7['intra_members']} members: {k7['intra_ms']:.3f} ms, kernel "
+        f"alone {k7['intra_device_ms']:.4f} ms (plain "
+        f"{k7['intra_plain_ms']:.3f} ms), bound "
+        f"{k7['intra_bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes) on "
+        f"{smi}")
     usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
     for kname in ("chroma_max_kernel", "dense_select_kernel",
                   "gather_windows_kernel<0>", "gather_windows_kernel<1>",
                   "gather_windows_kernel<2>", "pred_planes_kernel<17,9>",
                   "pred_planes_kernel<33,17>", "inter_search_kernel",
-                  "wave_kernel"):
+                  "wave_kernel", "wave_decode_kernel"):
         if kname not in usage:
             fail(f"ptxas reported nothing for {kname}")
         log(f"phase 2b: {kname}: {usage[kname]}")
@@ -949,12 +1096,15 @@ def main():
         f"on {smi}: inter frames {csum['inter_encode_fps']:.2f} fps; psnr "
         f"{csum['psnr_db']:.2f} dB, {csum['kbits_per_frame']:.1f} "
         f"kbit/frame; encode ms {csum['encode_ms']}; stage ms "
-        f"{csum['stage_ms']}; launches {claunches}; decoder host frames "
-        f"{csum['host_frames']}")
+        f"{csum['stage_ms']}; launches {claunches}")
+    log(f"phase 5: conformance decode on the device, inter frames "
+        f"{csum['inter_decode_fps']:.2f} fps; decode ms {csum['decode_ms']}; "
+        f"(waves, members) per frame {csum['waves_members']}; host frames "
+        f"{csum['host_frames']} on {smi}")
 
     phase_conformance_cpu_vs_card(gpu)
-    log("phase 6: conformance CPU and card chunks byte-identical at 176x144, "
-        "q 4, 16, 29")
+    log("phase 6: conformance CPU and card chunks byte-identical and decoded "
+        "to identical RGB on the device path at 176x144, q 4, 16, 29")
 
     meta = {
         "K1": ("chroma_max_maps", "src/cairo_tpu_torch/gpu/csrc/motion.cu",
@@ -971,7 +1121,16 @@ def main():
                "src/cairo_tpu/tpu/pallas_inter.py:395"),
         "K6": ("wave_pass", "src/cairo_tpu_torch/gpu/csrc/wave.cu",
                "src/cairo_tpu/tpu/pallas_wave.py:1045"),
+        # no Pallas kernel: the XLA while_loop of the conformance decode
+        "K7": ("wave_decode", "src/cairo_tpu_torch/gpu/csrc/wavedec.cu",
+               "src/cairo_tpu/tpu/wavefront.py:986"),
     }
+    instances = dict(K1="chroma_max_kernel", K2="dense_select_kernel",
+                     K3="gather_windows_kernel<2>",
+                     K4="pred_planes_kernel<17,9>",
+                     K4w="pred_planes_kernel<33,17>",
+                     K5="inter_search_kernel", K6="wave_kernel",
+                     K7="wave_decode_kernel")
     kernels = []
     for k, (name, source, replaces) in meta.items():
         r = recs[k]
@@ -982,12 +1141,13 @@ def main():
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None))
+            library_ms=None, ptxas=usage[instances[k]]))
         if "device_ms" in r:
             kernels[-1]["device_ms"] = r["device_ms"]
-        # K3's luma and chroma calls alone beside its three-plane launch
+        # K3's luma and chroma calls alone beside its three-plane launch,
+        # K7's intra frame beside its inter frame
         kernels[-1].update({k: v for k, v in r.items()
-                            if k.startswith(("luma_", "chroma_"))})
+                            if k.startswith(("luma_", "chroma_", "intra_"))})
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

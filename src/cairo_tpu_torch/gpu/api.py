@@ -6,13 +6,17 @@ GpuEncoder produces format-conformant evx1 streams in fast mode, byte-
 identical to TpuEncoder's. ConformanceGpuEncoder produces the reference
 encoder's own bytes (wavefront schedule), identical to
 ConformanceTpuEncoder's and cpuref.Evx1Encoder's. GpuDecoder
-reconstructs fast-mode streams on the device; frames with intra-motion
-blocks or motion beyond the fast reach (reference-encoder streams, the
-conformance encoder's among them) take the native sequential C++
-decoder, as TpuDecoder does with use_wavefront_decode = False, and are
-counted in `host_frames`. Both run on `device` ("cuda" by default, which
-raises without a card; the tests pass "cpu"). Frames are processed one
-at a time: encode_many / decode_many give the same results as a loop.
+reconstructs every conformant stream on the device, routing each frame
+as TpuDecoder does: fast-mode frames through engine.decode_step_coo, and
+frames with intra-motion blocks or inter vectors of |mv| in (16, 32]
+(reference-encoder streams, the conformance encoder's among them)
+through the wavefront decode (wavefront.conformance_decode_step, K7).
+Vectors no conforming encoder emits, and every frame when
+use_wavefront_decode is False, take the native sequential C++ decoder,
+which the stream then keeps; `host_frames` counts those frames. All run
+on `device` ("cuda" by default, which raises without a card; the tests
+pass "cpu"). Frames are processed one at a time: encode_many /
+decode_many give the same results as a loop.
 """
 
 from __future__ import annotations
@@ -389,6 +393,9 @@ class GpuDecoder:
         self.device = resolve_device(device)
         self._state = None
         self._native = None  # sequential C++ decoder once a stream needs it
+        # wave-path frames (intra-motion blocks, |mv| up to 32) decode on
+        # the device; False sends them to the native sequential decoder
+        self.use_wavefront_decode = True
         self.frame_index = 0
         self.host_frames = 0  # frames that took the native host decoder
         self.width = self.height = 0
@@ -431,41 +438,71 @@ class GpuDecoder:
                             self._coef_u, self._coef_v)
         t_ent = time.perf_counter()
 
-        bt_type = self._bt.block_type
-        im_mask = ((bt_type & INTRA_BIT).astype(bool)
-                   & (bt_type & MOTION_BIT).astype(bool))
-        inter_motion = (bt_type & MOTION_BIT).astype(bool) & ~im_mask
-        # fast-mode streams keep |mv| <= 16; intra-motion blocks and wider
-        # vectors (reference-encoder streams) need the sequential decoder
-        fast_mv = bool(np.all(
-            (np.abs(self._bt.motion_x[inter_motion]) <= 16)
-            & (np.abs(self._bt.motion_y[inter_motion]) <= 16)))
+        bt = self._bt
+        im_mask = (((bt.block_type & INTRA_BIT) != 0)
+                   & ((bt.block_type & MOTION_BIT) != 0))
+        inter_motion = ((bt.block_type & MOTION_BIT) != 0) & ~im_mask
+        inter_mx = np.abs(bt.motion_x[inter_motion])
+        inter_my = np.abs(bt.motion_y[inter_motion])
+        # fast-mode streams keep |mv| <= 16; the reference's inter search
+        # reaches +-31 (+1 sub-pel), which the wave step's wide gather takes
+        fast_mv = bool(np.all((inter_mx <= 16) & (inter_my <= 16)))
+        wide_mv = bool(np.all((inter_mx <= 32) & (inter_my <= 32)))
+        # intra-motion vectors a conforming encoder can emit (the wave
+        # window's reach, cuda_wavedec); anything wilder goes to the
+        # validating native decoder
+        im_mx, im_my = bt.motion_x[im_mask], bt.motion_y[im_mask]
+        im_reach_ok = bool(np.all((im_mx >= -32) & (im_mx <= 32)
+                                  & (im_my >= -48) & (im_my <= 16)))
+        needs_wave = bool(np.any(im_mask)) or not fast_mv
         self.frame_index += 1
-        if self._native is not None or bool(np.any(im_mask)) or not fast_mv:
+        if self._native is not None or not wide_mv or not im_reach_ok or \
+                (needs_wave and not self.use_wavefront_decode):
             self.host_frames += 1
             return dict(kind="host", rgb=self._decode_sequential(index))
 
         pos, val, count = native.extract_coo(
-            self._bt.block_type, self._aw // MB, self._coef_y, self._coef_u,
+            bt.block_type, self._aw // MB, self._coef_y, self._coef_u,
             self._coef_v, wire_mod.COO_K)
+        # upload bucket: typical inter frames fit the small one
+        small = min(wire_mod.COO_SMALL, wire_mod.COO_K)
+        coo_k = small if count <= small else wire_mod.COO_K
+        coo = [pos[:coo_k].view(np.uint8), val[:coo_k].view(np.uint8)]
+        kw = dict(aligned_w=self._aw, aligned_h=self._ah,
+                  frame_w=self.width, frame_h=self.height,
+                  deblock=self.config.enable_deblocking,
+                  out_fmt=self._out_fmt)
+        if needs_wave:
+            # wavefront device decode (reference-origin streams)
+            bi, bj, n_active = wavefront.build_compact_schedule(
+                bt.block_type, self._aw // MB, self._ah // MB)
+            head = np.array([index, n_active], np.int32).view(np.uint8)
+            tail = [wire_mod.pack_table_np(bt), bi.view(np.uint8).reshape(-1),
+                    bj.view(np.uint8).reshape(-1)]
+            kw.update(n_active=n_active, n_members=int(im_mask.sum()))
+            if count <= wire_mod.COO_K:
+                self._state, yuv = wavefront.conformance_decode_step(
+                    _upload(np.concatenate([head, *coo, *tail]),
+                            self.device), self._state, coo_k=coo_k, **kw)
+            else:
+                # COO overflow: the dense coefficient planes, as copies
+                # (the next frame's parser rewrites the host planes)
+                self._state, yuv = wavefront.conformance_decode_step_dense(
+                    _upload(np.concatenate([head, *tail]), self.device),
+                    *(_upload(p.copy(), self.device) for p in (
+                        self._coef_y, self._coef_u, self._coef_v)),
+                    self._state, **kw)
+            return self._wire_pending(yuv, index, t0, t_ent, n_active,
+                                      kw["n_members"])
         if count <= wire_mod.COO_K:
-            # upload bucket: typical inter frames fit the small one
-            small = min(wire_mod.COO_SMALL, wire_mod.COO_K)
-            coo_k = small if count <= small else wire_mod.COO_K
-            in_wire = np.concatenate([
-                np.array([index, 0], np.int32).view(np.uint8),
-                pos[:coo_k].view(np.uint8), val[:coo_k].view(np.uint8),
-                wire_mod.pack_table_np(self._bt)])
+            head = np.array([index, 0], np.int32).view(np.uint8)
             self._state, yuv = engine.decode_step_coo(
-                _upload(in_wire, self.device), self._state,
-                aligned_w=self._aw, aligned_h=self._ah,
-                frame_w=self.width, frame_h=self.height,
-                deblock=self.config.enable_deblocking, coo_k=coo_k,
-                out_fmt=self._out_fmt)
-            return dict(kind="wire", yuv=yuv, index=index, t0=t0,
-                        t_ent=t_ent, t_dispatch=time.perf_counter())
+                _upload(np.concatenate([head, *coo,
+                                        wire_mod.pack_table_np(bt)]),
+                        self.device), self._state, coo_k=coo_k, **kw)
+            return self._wire_pending(yuv, index, t0, t_ent, 0, 0)
         # dense fallback (residual volume beyond the COO capacity)
-        table = {k: _upload(getattr(self._bt, k), self.device)
+        table = {k: _upload(getattr(bt, k), self.device)
                  for k in _BT_FIELDS if k != "variance"}
         coef = {k: _upload(getattr(self, "_" + k), self.device)
                 for k in ("coef_y", "coef_u", "coef_v")}
@@ -474,6 +511,19 @@ class GpuDecoder:
             height=self.height, aligned_w=self._aw, aligned_h=self._ah,
             deblock=self.config.enable_deblocking)
         return dict(kind="dense", rgb=rgb)
+
+    def _wire_pending(self, yuv, index, t0, t_ent, waves, members):
+        """The pending record of a frame decoded to a YUV wire, with views
+        of the ring slot it wrote (TpuDecoder._ring_slot_refs): the exact
+        planes, should the wire overflow. Decoding runs frame by frame and
+        the slot is rewritten only RING frames later, so views suffice; a
+        pipelined decode must clone them or hold the slot."""
+        slot = index % RING
+        ring = tuple(self._state[k][slot] for k in ("ring_y", "ring_u",
+                                                    "ring_v"))
+        return dict(kind="wire", yuv=yuv, ring=ring, waves=waves,
+                    members=members, t0=t0, t_ent=t_ent,
+                    t_dispatch=time.perf_counter())
 
     def _finish_decode(self, pending) -> np.ndarray:
         kind = pending["kind"]
@@ -485,13 +535,15 @@ class GpuDecoder:
             rgb = pending["rgb"].cpu().numpy()
         else:
             rgb, stats["stage_ms"] = self._wire_to_rgb(pending)
+            stats.update(waves=pending["waves"], members=pending["members"])
         self.last_stats = stats
         return rgb
 
     def _wire_to_rgb(self, pending):
         """Fetches the YUV wire and converts it on the host; returns (rgb,
         stage ms). An overflowed exception list means the wire was lossy:
-        the exact reconstruction is fetched from the ring instead."""
+        the exact reconstruction is fetched from the ring-slot views taken
+        at dispatch (never from the live state)."""
         buf = pending["yuv"].cpu().numpy()
         t_fetch = time.perf_counter()
         if self._out_fmt == "yuv5d":
@@ -505,9 +557,7 @@ class GpuDecoder:
                 wire_mod.EXC_K)
             exc_cap = wire_mod.EXC_K
         if exc_count > exc_cap:
-            slot = pending["index"] % RING
-            y, u, v = (self._state[k][slot].cpu().numpy()
-                       for k in ("ring_y", "ring_u", "ring_v"))
+            y, u, v = (p.cpu().numpy() for p in pending["ring"])
             rgb = cpu_imaging.yuv420_to_rgb(y, u, v, self.width, self.height)
         stage_ms = dict(
             entropy=(pending["t_ent"] - pending["t0"]) * 1e3,

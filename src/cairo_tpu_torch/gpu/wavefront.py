@@ -16,15 +16,24 @@ The state is the recon ring, the persistent coefficient planes and the
 block table's stale q_index / variance fields (copy blocks keep the
 previous frame's values, common.cpp:67-73). The frame index and quality
 travel in the source wire's 8-byte header and stay on the device.
+
+The decode half (counterpart of wavefront.py:680-1086) reconstructs the
+frames of reference-origin streams on the device: every block that does
+not read the current frame densely (the residual, and K4 at pads 33/17),
+then the intra-motion blocks wave by wave over a schedule the host
+compacts to the waves that hold them (K7, cuda_wavedec). Its state is the
+fast-mode decoder's (engine.init_state): the ring and the coefficient
+planes; the JAX state's win_* window caches belong to its XLA anchors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import tables
 from ..blocktypes import COPY_BIT, INTRA_BIT, MOTION_BIT
-from . import cuda_inter, cuda_pred, cuda_wave, ops
+from . import cuda_inter, cuda_pred, cuda_wave, cuda_wavedec, engine, ops
 from . import deblock as deblock_mod
 from . import wire as wire_mod
 
@@ -163,3 +172,150 @@ def _conformance_tail(rec_y, rec_u, rec_v, table, coef_y, coef_u, coef_v,
         coef_y=state["coef_y"], coef_u=state["coef_u"],
         coef_v=state["coef_v"])
     return state, outputs
+
+
+# --------------------------------------------------------------------------
+# Wavefront decode (wavefront.py:680-1086)
+
+def decode_schedule(wb: int, hb: int):
+    """Geometry of the compacted decode schedule (wavefront.decode_schedule):
+    (n_waves, p), every wave w = bi + 3 bj of the frame, empty ones
+    included, and the most members a wave has."""
+    return (wb + cuda_wave.SKEW * (hb - 1),
+            max(len(m) for m in cuda_wave.wave_members(wb, hb)))
+
+
+def build_compact_schedule(block_type, wb: int, hb: int):
+    """Host side (wavefront.build_compact_schedule): the waves that hold
+    intra-motion blocks of one parsed frame, in wave order, their members
+    in raster order. Returns (bi, bj, n_active): int16 (n_waves, p) block
+    coordinates, -1 past each wave's members and in the rows past
+    n_active."""
+    n_waves, p = decode_schedule(wb, hb)
+    bt = np.asarray(block_type, np.int32)
+    idx = np.flatnonzero(((bt & INTRA_BIT) != 0) & ((bt & MOTION_BIT) != 0))
+    bi = np.full((n_waves, p), -1, np.int16)
+    bj = np.full((n_waves, p), -1, np.int16)
+    if idx.size == 0:
+        return bi, bj, 0
+    waves = idx % wb + cuda_wave.SKEW * (idx // wb)
+    order = np.lexsort((idx, waves))
+    idx, waves = idx[order], waves[order]
+    first = np.r_[True, waves[1:] != waves[:-1]]
+    row = np.cumsum(first) - 1
+    col = np.arange(idx.size) - np.flatnonzero(first)[row]
+    bi[row, col] = idx % wb
+    bj[row, col] = idx // wb
+    return bi, bj, int(row[-1]) + 1
+
+
+def conformance_decode_step(in_wire, state, *, n_active, n_members,
+                            aligned_w, aligned_h, frame_w=None, frame_h=None,
+                            deblock=True, coo_k=None, out_fmt="yuv8"):
+    """Decodes one parsed frame that needs the wave loop
+    (wavefront.conformance_decode_step): intra-motion blocks, or inter
+    vectors beyond the fast reach.
+
+    in_wire: uint8 tensor on the state's device, the JAX package's layout
+    byte for byte: the 8-byte [frame_index, n_active] int32 header, the
+    residual COO (coo_k int32 positions, coo_k int16 values), the packed
+    block table and the compacted schedule (bi, then bj, int16). n_active
+    (the header's) and n_members (the intra-motion blocks) come from the
+    host as ints, so no wave launch waits on a device read. Returns
+    (state, yuv wire); the state is updated in place."""
+    k = coo_k if coo_k is not None else wire_mod.COO_K
+    body = in_wire[8:]
+    return _conformance_decode_core(
+        in_wire[:8].view(I32)[0], n_active, n_members, body[6 * k:],
+        engine.coo_planes(body, k, aligned_w, aligned_h), state,
+        aligned_w=aligned_w, aligned_h=aligned_h, frame_w=frame_w,
+        frame_h=frame_h, deblock=deblock, out_fmt=out_fmt)
+
+
+def conformance_decode_step_dense(in_wire, cy_in, cu_in, cv_in, state, *,
+                                  n_active, n_members, aligned_w, aligned_h,
+                                  frame_w=None, frame_h=None, deblock=True,
+                                  out_fmt="yuv8"):
+    """conformance_decode_step with the residual coefficients as dense
+    int16 planes cy/cu/cv, for frames whose nonzeros overflow the COO
+    capacity (wavefront.conformance_decode_step_dense). in_wire: the
+    8-byte header, the packed table and the compacted schedule."""
+    return _conformance_decode_core(
+        in_wire[:8].view(I32)[0], n_active, n_members, in_wire[8:],
+        tuple(c.to(I32) for c in (cy_in, cu_in, cv_in)), state,
+        aligned_w=aligned_w, aligned_h=aligned_h, frame_w=frame_w,
+        frame_h=frame_h, deblock=deblock, out_fmt=out_fmt)
+
+
+def _conformance_decode_core(frame_index, n_active, n_members, tail,
+                             new_coef, state, *, aligned_w, aligned_h,
+                             frame_w, frame_h, deblock, out_fmt):
+    """wavefront._conformance_decode_core. tail: the wire from the packed
+    table on; new_coef: the frame's int32 coefficient planes."""
+    wb, hb = aligned_w // MB, aligned_h // MB
+    n = wb * hb
+    n_waves, p = decode_schedule(wb, hb)
+    table = wire_mod.unpack_table_wire(tail[:10 * n], n)
+    o = 10 * n
+    bi_t = wire_mod._view(tail[o:o + 2 * n_waves * p], torch.int16) \
+        .view(n_waves, p)
+    o += 2 * n_waves * p
+    bj_t = wire_mod._view(tail[o:o + 2 * n_waves * p], torch.int16) \
+        .view(n_waves, p)
+
+    block_type = table["block_type"].to(I32)
+    is_intra = (block_type & INTRA_BIT) != 0
+    is_motion = (block_type & MOTION_BIT) != 0
+    is_copy = (block_type & COPY_BIT) != 0
+    intra_motion = is_intra & is_motion
+    intra_default = is_intra & ~is_motion
+
+    # persistent coefficient planes, the residual of every block
+    coef = engine.carry_coef(state, is_copy, new_coef)
+    qp = table["q_index"].to(I32)
+    res = engine.residual(*engine.coef_blocks(*coef), qp, intra_default)
+
+    # dense prediction and reconstruction of the blocks that do not read
+    # the current frame (the intra-motion ones predict 0 here)
+    target = torch.where(is_intra, 0, table["prediction_target"].to(I32))
+    mx = torch.where(is_motion, table["motion_x"].to(I32), 0)
+    my = torch.where(is_motion, table["motion_y"].to(I32), 0)
+    sp_pred = is_motion & table["sp_pred"]
+    sp_index = table["sp_index"].to(I32)
+    pred = wide_gather_pred(
+        state, frame_index, target, torch.where(intra_motion, 0, mx),
+        torch.where(intra_motion, 0, my), sp_pred & ~intra_motion,
+        table["sp_amount"], sp_index, intra_default | intra_motion)
+    rec0 = engine.add_pred(res, pred, is_copy)
+
+    # the written planes: the dense blocks over the ring slot's content
+    # before this frame (stale, copies of the slot: the ring is written
+    # only after the deblock); the wave loop rebuilds the intra-motion
+    # blocks in them
+    slot = (frame_index % RING).reshape(1).long()
+    stale = tuple(state[key].index_select(0, slot)[0]
+                  for key in ("ring_y", "ring_u", "ring_v"))
+    ymask = engine.mb_mask(~intra_motion, aligned_h, aligned_w)
+    cmask = ymask[::2, ::2]
+    written = tuple(
+        torch.where(mask, ops.blocks_to_plane(r, *old.shape), old)
+        .to(torch.int16) for r, old, mask in zip(rec0, stale,
+                                                 (ymask, cmask, cmask)))
+    if n_active:
+        fields = torch.stack([mx, my, sp_pred.to(I32),
+                              table["sp_amount"].to(I32), sp_index,
+                              is_copy.to(I32)])
+        cuda_wavedec.wave_decode(written, stale,
+                                 tuple(r.contiguous() for r in res), fields,
+                                 bi_t, bj_t, n_active, n_members)
+
+    rec_y, rec_u, rec_v = engine.finish_planes(
+        state, *(p.to(I32) for p in written), frame_index, is_copy, qp,
+        deblock)
+    state["coef_y"], state["coef_u"], state["coef_v"] = (
+        c.to(torch.int16) for c in coef)
+    pack = (wire_mod.pack_yuv5d_wire if out_fmt == "yuv5d"
+            else wire_mod.pack_yuv_wire)
+    return state, pack(rec_y, rec_u, rec_v,
+                       frame_w if frame_w is not None else aligned_w,
+                       frame_h if frame_h is not None else aligned_h)

@@ -1,7 +1,7 @@
 """GpuEncoder / GpuDecoder (device="cpu") against TpuEncoder / TpuDecoder:
 byte-identical chunks, identical RGB, checkpoint hand-over from the JAX
 package to the port, the host-decoder frame count, and the capacity
-overflow paths."""
+overflow paths (the wavefront decode: test_torch_wavedec.py)."""
 
 import numpy as np
 import pytest
@@ -102,8 +102,9 @@ def test_tpu_checkpoint_resumes_in_port():
 
 
 def test_host_path_frames_are_counted():
-    """Reference-encoder streams carry intra-motion blocks: every frame
-    takes the native sequential decoder, and the count says so."""
+    """Reference-encoder streams carry intra-motion blocks: with the
+    wavefront decode off, every frame takes the native sequential decoder,
+    and the count says so."""
     frames = synth_frames(64, 48, 3)
     enc = Evx1Encoder()
     enc.set_quality(16)
@@ -111,6 +112,7 @@ def test_host_path_frames_are_counted():
     jdec = TpuDecoder()
     jdec.use_wavefront_decode = False
     tdec = api.GpuDecoder(device="cpu")
+    tdec.use_wavefront_decode = False
     cdec = Evx1Decoder()
     for i, c in enumerate(chunks):
         got = tdec.decode(c)

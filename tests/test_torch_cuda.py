@@ -1,6 +1,6 @@
-"""Card-only tests of the port: the CUDA kernels K1-K6 (K4 at both pad
+"""Card-only tests of the port: the CUDA kernels K1-K7 (K4 at both pad
 sets) against their plain versions, and the fast-mode and conformance
-encoders on the card against the CPU. Each test is
+encoders and the wavefront decode on the card against the CPU. Each test is
 marked `cuda` and skips without a CUDA card. The file imports neither jax
 nor cairo_tpu, so it runs on a machine without them:
 
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from cairo_tpu_torch.gpu import (api, cuda_inter, cuda_motion, cuda_pred,
-                                 cuda_wave, ops, wavefront)
+                                 cuda_wave, cuda_wavedec, ops, wavefront)
 from cairo_tpu_torch.synth import synth_frames
 
 RING = 4
@@ -456,3 +456,69 @@ def test_pred_planes_edges(dev, pads, kind):
             for g, wnt in zip(cuda_pred.pred_planes(*ring, *fields, *pads),
                               want, strict=True):
                 _eq(g, wnt)
+
+
+def _k7_inputs(rng, h, w, dev):
+    """K7's arguments at (h, w): random planes and residuals, half the
+    MBs intra-motion, vectors over and beyond the clip box (below-left
+    ones among them), every sub-pel direction and indices outside 0..7,
+    copies."""
+    n = (h // 16) * (w // 16)
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    planes = tuple(_t(rng.integers(-300, 560, s), torch.int16).to(dev)
+                   for s in shapes)
+    stale = tuple(_t(rng.integers(-300, 560, s), torch.int16).to(dev)
+                  for s in shapes)
+    res = tuple(_t(rng.integers(-600, 600, (n, s, s)).astype(np.int32))
+                .to(dev) for s in (16, 8, 8))
+    fields = _t(np.stack([
+        rng.integers(-40, 41, n), rng.integers(-56, 24, n),
+        rng.random(n) < 0.6, rng.random(n) < 0.5,
+        np.arange(n) % 10 - 1, rng.random(n) < 0.2]).astype(np.int32))
+    bt = np.where(rng.random(n) < 0.5, 3, 1).astype(np.uint8)
+    bi, bj, n_active = wavefront.build_compact_schedule(bt, w // 16, h // 16)
+    return (planes, stale, res, fields.to(dev), _t(bi).to(dev),
+            _t(bj).to(dev), n_active, int((bt == 3).sum()))
+
+
+@pytest.mark.cuda
+def test_wave_decode_matches_plain(dev):
+    """K7 at 160x96 against its plain version; two runs from the same
+    planes are identical, and the counts are one launch per active wave
+    and the members rebuilt."""
+    rng = np.random.default_rng(71)
+    planes, stale, res, fields, bi, bj, n_active, n_members = _k7_inputs(
+        rng, 96, 160, dev)
+    want = cuda_wavedec.wave_decode_plain(
+        tuple(p.clone() for p in planes), stale, res, fields, bi, bj,
+        n_active, n_members)
+    for _ in range(2):
+        before = dict(cuda_wavedec.LAUNCHES)
+        got = cuda_wavedec.wave_decode(tuple(p.clone() for p in planes),
+                                       stale, res, fields, bi, bj, n_active,
+                                       n_members)
+        for g, wnt in zip(got, want, strict=True):
+            _eq(g, wnt)
+        assert cuda_wavedec.LAUNCHES["wave_decode"] - \
+            before["wave_decode"] == n_active
+        assert cuda_wavedec.LAUNCHES["wave_decode_members"] - \
+            before["wave_decode_members"] == n_members
+
+
+@pytest.mark.cuda
+def test_wavefront_decode_card_matches_cpu(dev):
+    """GpuDecoder on the card against device="cpu" on ConformanceGpuEncoder
+    streams at q 4 and 29: identical RGB, no frame on the host, and K7
+    rebuilt intra-motion blocks."""
+    frames = synth_frames(120, 72, 3, seed=9)
+    for quality in (4, 29):
+        enc = api.ConformanceGpuEncoder(device="cpu")
+        enc.set_quality(quality)
+        chunks = [enc.encode(f) for f in frames]
+        cpu, card = api.GpuDecoder(device="cpu"), api.GpuDecoder(device=dev)
+        members = cuda_wavedec.LAUNCHES["wave_decode_members"]
+        for i, c in enumerate(chunks):
+            np.testing.assert_array_equal(card.decode(c), cpu.decode(c),
+                                          err_msg=f"q{quality} frame {i}")
+        assert card.host_frames == cpu.host_frames == 0
+        assert cuda_wavedec.LAUNCHES["wave_decode_members"] > members
