@@ -39,15 +39,19 @@ Phases, one line each with the elapsed seconds:
      log (kept beside the library, so a cached build reports them too);
      K7 against its plain version on the inputs the wavefront decode of a
      1080p conformance stream (1 intra + 1 inter frame, q16) gives it,
-     each frame's run twice, exact; its times on the inter frame's waves
-     (the intra frame's under intra_*);
+     each frame's run twice, exact, one launch each; each frame's longest
+     chain of dependent members (cuda_wavedec.dependency_chain, and its
+     model of the steps with 1, 2 and 4 blocks an SM holding tickets) and
+     K7's device time per chain step; its times on the inter frame (the
+     intra frame's under intra_*);
   5. conformance path: ConformanceGpuEncoder over 1 intra + 2 inter
      synthetic 1920x1080 frames at q16, each chunk decoded by GpuDecoder
      on the device (the wavefront decode: K4 at 33/17 and K7); no frame may
      take the host decoder, every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, K4 at
-     33/17, K5, K6 and K7 must each have been launched (K6 once per frame)
-     and K7 must have rebuilt intra-motion blocks; prints the decode fps
+     33/17, K5, K6 and K7 must each have been launched (K6 once per frame,
+     K7 once per decode frame with active waves) and K7 must have rebuilt
+     intra-motion blocks; prints the decode fps
      and the waves and members per frame;
   6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
      give byte-identical chunks with device="cpu" and on the card, and
@@ -623,33 +627,51 @@ def phase_kernels_wave_decode(torch, np, gpu):
     def fresh(args):
         return (tuple(p.clone() for p in args[0]), *args[1:])
 
-    err = 0
+    err, chains, steps = 0, {}, {}
     for i, args in sorted(calls.items()):
         want = cwd.wave_decode_plain(*fresh(args))
-        runs = [kernel(*fresh(args)) for _ in range(2)]
+        runs = []
+        for _ in range(2):
+            before = cwd.LAUNCHES["wave_decode"]
+            runs.append(kernel(*fresh(args)))
+            if cwd.LAUNCHES["wave_decode"] - before != 1:
+                fail(f"K7: {cwd.LAUNCHES['wave_decode'] - before} launches "
+                     f"for frame {i} (one per frame expected)")
         torch.cuda.synchronize()
         compare(torch, f"K7 wave_decode (frame {i}, second run)", runs[1],
                 runs[0])
         err = max(err, compare(torch, f"K7 wave_decode (frame {i})",
                                runs[0], want))
-    log("K7: two runs identical and equal to the plain version at 1920x1080 "
-        "on " + ", ".join(f"frame {i} ({a[6]} waves, {a[7]} members)"
-                          for i, a in sorted(calls.items())))
+        h, w = args[0][0].shape
+        chains[i] = cwd.dependency_chain(*args[3:7], h, w)
+        # the ticket window's model: steps with 1, 2 and 4 blocks an SM
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        steps[i] = {k * sms: cwd.dependency_chain(*args[3:7], h, w, k * sms)
+                    for k in (1, 2, 4)}
+    log("K7: two runs identical and equal to the plain version at 1920x1080, "
+        "one launch each, on " + ", ".join(
+            f"frame {i} ({a[6]} waves, {a[7]} members, longest chain "
+            f"{chains[i]}, modelled steps by grid {steps[i]})"
+            for i, a in sorted(calls.items())))
 
-    def timed(args):
+    def timed(args, chain):
         scratch = fresh(args)
         nbytes, ops = wave_decode_work(args)
+        dev_ms = device_ms(torch, lambda: kernel(*scratch),
+                           "wave_decode_kernel")
         return dict(
             ms=cuda_ms(torch, lambda: kernel(*scratch), 10),
-            device_ms=device_ms(torch, lambda: kernel(*scratch),
-                                "wave_decode_kernel", per_call=args[6]),
+            device_ms=dev_ms,
             plain_ms=cuda_ms(torch, lambda: cwd.wave_decode_plain(*scratch),
                              3),
-            bytes=nbytes, ops=ops, waves=args[6], members=args[7])
+            bytes=nbytes, ops=ops, waves=args[6], members=args[7],
+            launches_per_frame=1, chain=chain,
+            us_per_chain_step=dev_ms * 1e3 / chain)
 
-    rec = timed(calls[1])
+    rec = timed(calls[1], chains[1])
     rec["max_abs_err"] = err
-    rec.update({f"intra_{k}": v for k, v in timed(calls[0]).items()})
+    rec.update({f"intra_{k}": v
+                for k, v in timed(calls[0], chains[0]).items()})
     return rec
 
 
@@ -683,13 +705,19 @@ def phase_conformance(torch, np, gpu):
             arrays["ring_v"][slot], meta["width"], meta["height"]))
     dec = api.GpuDecoder()
     outs, dec_s, waves = [], [], []
-    for c in chunks:
+    for i, c in enumerate(chunks):
+        before = counters[3]["wave_decode"]
         t0 = time.perf_counter()
         outs.append(dec.decode(c))
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
         waves.append((dec.last_stats.get("waves"),
                       dec.last_stats.get("members")))
+        k7 = counters[3]["wave_decode"] - before
+        if k7 != int(bool(waves[-1][0])):
+            fail(f"conformance path: frame {i} ({waves[-1][0]} waves) "
+                 f"launched K7 {k7} times (once per wave-path frame "
+                 f"expected)")
     launches = {"pred_planes_wide": counters[0]["pred_planes_wide"],
                 "inter_search": counters[1]["inter_search"],
                 "wave_pass": counters[2]["wave_pass"],
@@ -1070,17 +1098,17 @@ def main():
         f"us per step of its {recs['K6']['steps']}-MB chain on {smi}")
     log(f"phase 2b: K5 timed input: {100 * recs['K5']['frozen']:.1f}% of the "
         f"(MB, reference) searches frozen by the co-located candidate")
-    k7 = recs["K7"]
-    log(f"phase 2b: K7 on {k7['waves']} waves, {k7['members']} members: "
-        f"{k7['ms']:.3f} ms, kernel alone {k7['device_ms']:.4f} ms, bound "
-        f"{k7['bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes) on {smi}")
-    log(f"phase 2b: K7 on the intra frame's {k7['intra_waves']} waves, "
-        f"{k7['intra_members']} members: {k7['intra_ms']:.3f} ms, kernel "
-        f"alone {k7['intra_device_ms']:.4f} ms (plain "
-        f"{k7['intra_plain_ms']:.3f} ms), bound "
-        f"{k7['intra_bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes) on "
-        f"{smi}")
     usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
+    k7 = recs["K7"]
+    for frame, pre in (("inter", ""), ("intra", "intra_")):
+        log(f"phase 2b: K7 on the {frame} frame: 1 launch, "
+            f"{k7[pre + 'waves']} waves, {k7[pre + 'members']} members, "
+            f"longest chain {k7[pre + 'chain']}: {k7[pre + 'ms']:.4f} ms, "
+            f"kernel alone {k7[pre + 'device_ms']:.4f} ms, "
+            f"{k7[pre + 'us_per_chain_step']:.3f} us per chain step (plain "
+            f"{k7[pre + 'plain_ms']:.3f} ms), bound "
+            f"{k7[pre + 'bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes); "
+            f"{usage.get('wave_decode_kernel')} on {smi}")
     for kname in ("chroma_max_kernel", "dense_select_kernel",
                   "gather_windows_kernel<0>", "gather_windows_kernel<1>",
                   "gather_windows_kernel<2>", "pred_planes_kernel<17,9>",

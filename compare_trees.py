@@ -13,12 +13,17 @@ line, on seeded 1920x1080 content at q16:
   * fast mode: GpuEncoder over 1 intra + 4 inter frames and GpuDecoder
     over their chunks, the inter frames' encode and decode fps;
   * conformance: ConformanceGpuEncoder over 1 intra + 2 inter frames, the
-    inter frames' encode fps;
+    inter frames' encode fps; GpuDecoder over those chunks (the wavefront
+    decode), the inter frames' decode fps, and per frame its waves and
+    members, K7's launches (cuda_wavedec.LAUNCHES) and K7's device ms
+    (chip_smoke.device_ms) and CUDA-event ms (chip_smoke.cuda_ms, host
+    work included) on the arguments the decode gave it;
   * each kernel of the checkout's gpu/csrc (every __global__ function):
     device ms and launches in one more inter frame of each path, from a
     torch.profiler trace;
-  * the sha256 of each path's stream (the chunks of the timed frames), so
-    that a change that must keep the bytes shows that it did.
+  * the sha256 of each path's stream (the chunks of the timed frames) and
+    of the RGB both decoders gave, so that a change that must keep the
+    bytes shows that it did.
 With --pred-kernels a turn times K3 (gather_windows) and K4
 (pred_planes) call by call instead, each checked exact against its plain
 version (chip_smoke.compare), on seeded 1920x1088 inputs of the ranges
@@ -36,12 +41,13 @@ that drift of the card or the host shows as a difference between the two
 turns of one checkout. The first line printed is the card's name and
 power limit, then one line per turn; the last is a JSON object with
 every turn. Exits non-zero without a CUDA device, when a turn fails, or
-(end to end) when a turn's fast or conformance stream differs from the
-first turn's, after printing every turn.
+(end to end) when a turn's fast or conformance stream or decoded RGB
+differs from the first turn's, after printing every turn.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -75,8 +81,9 @@ def run_turn(src):
 
     from cairo_tpu_torch import (ConformanceGpuEncoder, GpuDecoder,
                                  GpuEncoder)
-    from cairo_tpu_torch.gpu import _build
+    from cairo_tpu_torch.gpu import _build, cuda_wavedec
     from cairo_tpu_torch.synth import synth_frames
+    from chip_smoke import cuda_ms, device_ms
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -105,29 +112,66 @@ def run_turn(src):
     enc.set_quality(16)
     enc_s, dec_s = [], []
     fast_sha, conf_sha = hashlib.sha256(), hashlib.sha256()
+    fast_rgb, conf_rgb = hashlib.sha256(), hashlib.sha256()
     for f in frames[:5]:
         chunk, s = timed(lambda: enc.encode(f))
         fast_sha.update(chunk)
         enc_s.append(s)
-        dec_s.append(timed(lambda: dec.decode(chunk))[1])
+        rgb, s = timed(lambda: dec.decode(chunk))
+        fast_rgb.update(rgb.tobytes())
+        dec_s.append(s)
     fast_kernels = kernels_of(lambda: dec.decode(enc.encode(frames[5])))
 
     cenc = ConformanceGpuEncoder()
     cenc.set_quality(16)
-    conf_s = []
+    conf_s, conf_chunks = [], []
     for f in frames[:3]:
         chunk, s = timed(lambda: cenc.encode(f))
         conf_sha.update(chunk)
         conf_s.append(s)
+        conf_chunks.append(chunk)
     conf_kernels = kernels_of(lambda: cenc.encode(frames[3]))
+
+    # the wavefront decode of those chunks, K7's arguments kept per frame
+    cdec, cdec_s, k7 = GpuDecoder(), [], []
+    kernel, calls = cuda_wavedec.wave_decode, {}
+
+    def record(planes, *rest):
+        calls[len(cdec_s)] = (tuple(p.clone() for p in planes), *rest)
+        return kernel(planes, *rest)
+
+    cuda_wavedec.wave_decode = record
+    try:
+        for chunk in conf_chunks:
+            before = cuda_wavedec.LAUNCHES["wave_decode"]
+            rgb, s = timed(lambda: cdec.decode(chunk))
+            conf_rgb.update(rgb.tobytes())
+            cdec_s.append(s)
+            k7.append(dict(waves=cdec.last_stats.get("waves"),
+                           members=cdec.last_stats.get("members"),
+                           launches=cuda_wavedec.LAUNCHES["wave_decode"] -
+                           before))
+    finally:
+        cuda_wavedec.wave_decode = kernel
+    for i, args in calls.items():
+        run = functools.partial(kernel, tuple(p.clone() for p in args[0]),
+                                *args[1:])
+        k7[i]["device_ms"] = device_ms(torch, run, "wave_decode_kernel",
+                                       per_call=k7[i]["launches"])
+        k7[i]["events_ms"] = cuda_ms(torch, run, 10)
     return {"src": src,
             "fast_encode_fps": 4 / sum(enc_s[1:]),
             "fast_decode_fps": 4 / sum(dec_s[1:]),
             "conformance_encode_fps": 2 / sum(conf_s[1:]),
             "fast_encode_ms": [s * 1e3 for s in enc_s],
             "conformance_encode_ms": [s * 1e3 for s in conf_s],
+            "conformance_decode_fps": 2 / sum(cdec_s[1:]),
+            "conformance_decode_ms": [s * 1e3 for s in cdec_s],
+            "conformance_decode_k7": k7,
             "fast_stream_sha256": fast_sha.hexdigest(),
             "conformance_stream_sha256": conf_sha.hexdigest(),
+            "fast_rgb_sha256": fast_rgb.hexdigest(),
+            "conformance_rgb_sha256": conf_rgb.hexdigest(),
             "fast_frame_kernels": fast_kernels,
             "conformance_frame_kernels": conf_kernels}
 
@@ -242,10 +286,13 @@ def main():
         else:
             print(f"{who}: fast encode {rec['fast_encode_fps']:.3f} fps, "
                   f"decode {rec['fast_decode_fps']:.3f} fps, conformance "
-                  f"{rec['conformance_encode_fps']:.3f} fps", flush=True)
+                  f"encode {rec['conformance_encode_fps']:.3f} fps, decode "
+                  f"{rec['conformance_decode_fps']:.3f} fps; K7 per frame "
+                  f"{rec['conformance_decode_k7']}", flush=True)
         turns.append(rec)
     print(json.dumps({"card": smi, "turns": turns}), flush=True)
-    differ = [k for k in ("fast_stream_sha256", "conformance_stream_sha256")
+    differ = [k for k in ("fast_stream_sha256", "conformance_stream_sha256",
+                          "fast_rgb_sha256", "conformance_rgb_sha256")
               if not pred and len({t[k] for t in turns}) > 1]
     if differ:
         raise SystemExit(f"compare_trees: streams differ between turns "

@@ -1,11 +1,12 @@
-// Helpers shared by the prediction (pred.cu), inter-search (inter.cu)
-// and wave-pass (wave.cu) kernels. The integer helpers repeat the C
-// arithmetic of gpu/ops.py exactly, int32 wrap included: where a torch
-// int32 op may wrap, the helper computes in uint32_t and casts back,
-// because signed overflow is undefined in CUDA C++. The search helpers
-// (acceptance rules, the frame test, sub-pel directions and blends) are
-// the one copy of the reference's motion-search rules that K5 and K6 both
-// run; Windows is K6's search window.
+// Helpers shared by the prediction (pred.cu), inter-search (inter.cu),
+// wave-pass (wave.cu) and wave-decode (wavedec.cu) kernels. The integer
+// helpers repeat the C arithmetic of gpu/ops.py exactly, int32 wrap
+// included: where a torch int32 op may wrap, the helper computes in
+// uint32_t and casts back, because signed overflow is undefined in CUDA
+// C++. The search helpers (acceptance rules, the frame test, sub-pel
+// directions and blends) are the one copy of the reference's
+// motion-search rules that K5 and K6 both run; Windows is K6's search
+// window.
 
 #pragma once
 
@@ -93,6 +94,20 @@ __device__ __forceinline__ void cp_async16z(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// ---- waits across blocks of one persistent launch (K6 wave.cu, K7
+// wavedec.cu): a poll reads with acquire semantics at GPU scope, sleeps
+// between polls, and traps past SPIN_LIMIT polls (some seconds), so a
+// deadlock is a launch error, not a hang
+
+constexpr long long SPIN_LIMIT = 1ll << 25;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 // ---- motion search (K5 inter.cu, K6 wave.cu)

@@ -83,7 +83,6 @@ constexpr int NDESC = 11;
 constexpr int NFIELD = 9;                    // cuda_inter.FIELDS
 constexpr int NCONST = 256;  // basis, intra QM, inter QM, luma/chroma DC
 constexpr int COMPUTE = 224;  // warps 0-6; warp 7 loads the strips
-constexpr long long SPIN_LIMIT = 1ll << 25;       // polls (> 2 s) before a trap
 
 // The causal window's reach in MBs around the MB (cuda_wave.WIN_X,
 // WIN_Y): luma [py - 16 UP, py + 16 (DOWN + 1)) x [px - 16 LEFT,
@@ -150,13 +149,6 @@ __device__ __forceinline__ int rounded_div_small(int n, int d, float rd) {
 __device__ __forceinline__ int ilog2_u32(int v) {
   const unsigned u = static_cast<unsigned>(v);
   return u == 0 ? 0 : 31 - __clz(u);
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

@@ -481,28 +481,105 @@ def _k7_inputs(rng, h, w, dev):
             _t(bj).to(dev), n_active, int((bt == 3).sum()))
 
 
-@pytest.mark.cuda
-def test_wave_decode_matches_plain(dev):
-    """K7 at 160x96 against its plain version; two runs from the same
-    planes are identical, and the counts are one launch per active wave
-    and the members rebuilt."""
-    rng = np.random.default_rng(71)
-    planes, stale, res, fields, bi, bj, n_active, n_members = _k7_inputs(
-        rng, 96, 160, dev)
-    want = cuda_wavedec.wave_decode_plain(
-        tuple(p.clone() for p in planes), stale, res, fields, bi, bj,
-        n_active, n_members)
+def _k7_check(args):
+    """K7 on `args` twice from the same planes: each run equal to the
+    plain version, so identical, and each one launch covering n_active
+    waves and n_members members."""
+    planes, *rest = args
+    n_active, n_members = rest[-2:]
+    want = cuda_wavedec.wave_decode_plain(tuple(p.clone() for p in planes),
+                                          *rest)
     for _ in range(2):
         before = dict(cuda_wavedec.LAUNCHES)
         got = cuda_wavedec.wave_decode(tuple(p.clone() for p in planes),
-                                       stale, res, fields, bi, bj, n_active,
-                                       n_members)
+                                       *rest)
         for g, wnt in zip(got, want, strict=True):
             _eq(g, wnt)
-        assert cuda_wavedec.LAUNCHES["wave_decode"] - \
-            before["wave_decode"] == n_active
-        assert cuda_wavedec.LAUNCHES["wave_decode_members"] - \
-            before["wave_decode_members"] == n_members
+        grew = {k: cuda_wavedec.LAUNCHES[k] - before[k] for k in before}
+        assert grew == {"wave_decode": int(n_active > 0),
+                        "wave_decode_waves": n_active,
+                        "wave_decode_members": n_members}
+
+
+def _k7_frame(rng, h, w, dev, members, mx, my, sp_pred):
+    """K7's arguments with the given members (bool (N,)) and vectors,
+    random planes, residuals, sub-pel amounts and directions, copies."""
+    n = (h // 16) * (w // 16)
+    planes, stale, res, fields, *_ = _k7_inputs(rng, h, w, dev)
+    fields[0], fields[1], fields[2] = (
+        torch.as_tensor(np.broadcast_to(a, n).astype(np.int32))
+        for a in (mx, my, sp_pred))
+    bt = np.where(members, 3, 1).astype(np.uint8)
+    bi, bj, n_active = wavefront.build_compact_schedule(bt, w // 16, h // 16)
+    return (planes, stale, res, fields, _t(bi).to(dev), _t(bj).to(dev),
+            n_active, int(members.sum()))
+
+
+@pytest.mark.cuda
+def test_wave_decode_matches_plain(dev):
+    """K7 at 160x96 against its plain version; two runs from the same
+    planes are identical, and the counts are one launch per call, the
+    active waves and the members rebuilt."""
+    _k7_check(_k7_inputs(np.random.default_rng(71), 96, 160, dev))
+
+
+@pytest.mark.cuda
+def test_wave_decode_row_chain_1080p(dev):
+    """Every MB of a 1920x1088 frame a member reading 16 samples to its
+    left, full-pel: each waits on its left neighbour, a chain as long as
+    an MB row (120 members), twice, exact."""
+    h, w = 1088, 1920
+    n = (h // 16) * (w // 16)
+    args = _k7_frame(np.random.default_rng(72), h, w, dev,
+                     np.ones(n, bool), -16, 0, 0)
+    assert cuda_wavedec.dependency_chain(args[3], args[4], args[5],
+                                         args[6], h, w) == w // 16
+    _k7_check(args)
+
+
+@pytest.mark.cuda
+def test_wave_decode_reads_only_stale(dev):
+    """Members whose vectors point right of and below their block, full
+    pel, read only stale samples: no member waits on another."""
+    rng = np.random.default_rng(73)
+    h, w = 192, 320
+    n = (h // 16) * (w // 16)
+    args = _k7_frame(rng, h, w, dev, rng.random(n) < 0.7,
+                     rng.integers(0, 33, n), rng.integers(0, 17, n), 0)
+    deps = cuda_wavedec.dependencies(args[3], args[4], args[5], args[6], h,
+                                     w)
+    assert (deps < 0).all()
+    _k7_check(args)
+
+
+@pytest.mark.cuda
+def test_wave_decode_corner_members(dev):
+    """One member at each corner of the frame, vectors over the clip box,
+    sub-pel."""
+    rng = np.random.default_rng(74)
+    h, w = 96, 160
+    wb, hb = w // 16, h // 16
+    members = np.zeros(wb * hb, bool)
+    members[[0, wb - 1, (hb - 1) * wb, hb * wb - 1]] = True
+    args = _k7_frame(rng, h, w, dev, members, rng.integers(-40, 41, wb * hb),
+                     rng.integers(-56, 24, wb * hb), 1)
+    _k7_check(args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 2])
+def test_wave_decode_capped_grid(dev, blocks, monkeypatch):
+    """K7 launched with one and with two blocks (cuda_wavedec.MAX_BLOCKS):
+    the blocks take the tickets in order and each waits only on earlier
+    tickets, so a grid of any size finishes, exactly."""
+    monkeypatch.setattr(cuda_wavedec, "MAX_BLOCKS", blocks)
+    rng = np.random.default_rng(75)
+    _k7_check(_k7_inputs(rng, 96, 160, dev))
+    h, w = 192, 320
+    n = (h // 16) * (w // 16)
+    _k7_check(_k7_frame(rng, h, w, dev, np.ones(n, bool),
+                        rng.integers(-40, 41, n), rng.integers(-56, 24, n),
+                        rng.random(n) < 0.6))
 
 
 @pytest.mark.cuda
