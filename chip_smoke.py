@@ -15,13 +15,21 @@ Phases, one line each with the elapsed seconds:
      shifts, flat planes that force ties, recon overshoot beyond 0..255,
      references over the whole int16 range, window offsets the clamp
      catches); exact equality; K3 as the main path launches it (Y, U and
-     V in one launch) and as a luma and a chroma call alone; CUDA-event
-     times and each kernel's device time from a torch.profiler trace;
+     V in one launch) and as a luma and a chroma call alone; K8
+     deblock_frame run twice with identical outputs and its inputs left as
+     they were, at 1920x1088 (recon overshoot, copy MBs with stale
+     non-zero q) and at the edge cases of its CPU tests
+     (tests/util_deblock.py: one MB, one MB row, one MB column and
+     272x480; all, no and some copy MBs, q 0 and 31, samples far beyond
+     int16, a uint8 q map); CUDA-event times and each kernel's device
+     time from a torch.profiler trace, K8's bound and ptxas registers and
+     spills;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
      frame may take the host decode path, every kernel must have been
-     launched, and K3 once per reference search (as often as K2);
+     launched, K3 once per reference search (as often as K2) and K8 once
+     per encoded and once per decoded frame;
   4. CPU against card: 3 frames at 176x144 encoded with device="cpu" and
      on the card give byte-identical chunks;
   2b. the conformance path's kernels against their plain versions at its
@@ -50,14 +58,16 @@ Phases, one line each with the elapsed seconds:
      take the host decoder, every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, K4 at
      33/17, K5, K6 and K7 must each have been launched (K6 once per frame,
-     K7 once per decode frame with active waves) and K7 must have rebuilt
-     intra-motion blocks; prints the decode fps
+     K7 once per decode frame with active waves, K8 once per encoded and
+     once per decoded frame) and K7 must have rebuilt intra-motion blocks;
+     prints the decode fps
      and the waves and members per frame;
   6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
      give byte-identical chunks with device="cpu" and on the card, and
      GpuDecoder decodes them to identical RGB on both, on the device path.
 The line before the last is a JSON object with each kernel's launches (K4
-once per pad set; K7's in phase 5), error, times and ptxas registers (K3's
+once per pad set; K7's in phase 5; K8's in phases 3 and 5 together, by
+path under launches_by_path), error, times and ptxas registers (K3's
 are its three-plane launch's, with its luma and chroma calls alone under
 luma_* and chroma_*); the last line is the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -405,6 +415,59 @@ def phase_kernels(torch, np, gpu):
     return recs
 
 
+# integer operations of one evaluation of the deblock filter (one edge at
+# one row or column: the threshold tests, the sums and divisions of the
+# strength-2 or strength-1 branch, the selects), an estimate from
+# deblock.cu's filter
+FILTER_OPS = 80
+
+
+def phase_kernels_deblock(torch, gpu):
+    """K8 against its plain version at 1080p and at the edge cases, twice,
+    inputs unchanged; returns the kernel's record (times at 1080p)."""
+    from util_deblock import KINDS, SIZES, deblock_case
+
+    cd, plain = gpu["cuda_deblock"], gpu["deblock"].deblock_frame
+    H, W = 1088, 1920
+
+    def on_card(kind, h, w):
+        return tuple(torch.as_tensor(a).cuda()
+                     for a in deblock_case(kind, h, w, seed=SEED))
+
+    cases = [(f"mixed {W}x{H}", on_card("mixed", H, W))]
+    cases += [(f"{kind} {w}x{h}", on_card(kind, h, w))
+              for h, w in SIZES for kind in KINDS]
+    err = 0
+    for label, args in cases:
+        before = tuple(a.clone() for a in args)
+        runs = [cd.deblock_frame(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        compare(torch, f"K8 deblock_frame ({label}, second run)", runs[1],
+                runs[0])
+        err = max(err, compare(torch, f"K8 deblock_frame ({label})",
+                               runs[0], plain(*args)))
+        compare(torch, f"K8 deblock_frame ({label}, its inputs)", args,
+                before)
+    log(f"K8: two runs identical, equal to the plain version and the inputs "
+        f"unchanged on {len(cases)} cases ({W}x{H}; "
+        f"{', '.join(f'{w}x{h}' for h, w in SIZES)} x {', '.join(KINDS)})")
+    args = cases[0][1]
+    # every edge filtered once per row (vertical) or column (horizontal):
+    # Y's at 8-px cells, U's and V's at 8-px cells of the half planes
+    filters = sum((pw // 8 - 1) * ph + (ph // 8 - 1) * pw
+                  for ph, pw in ((H, W), (H // 2, W // 2), (H // 2, W // 2)))
+    n = (H // 16) * (W // 16)
+    return dict(
+        ms=cuda_ms(torch, lambda: cd.deblock_frame(*args), 10),
+        device_ms=device_ms(torch, lambda: cd.deblock_frame(*args),
+                            "deblock_kernel"),
+        plain_ms=cuda_ms(torch, lambda: plain(*args), 3),
+        # three int32 planes read and written once, the copy flags and the
+        # int32 q map read once
+        bytes=H * W * 3 // 2 * 4 * 2 + n * (1 + 4),
+        ops=filters * FILTER_OPS, max_abs_err=err)
+
+
 def phase_kernels_conformance(torch, np, gpu, H=1088, W=1920):
     """K4 at pads 33/17, K5 and K6 against their plain versions at the
     conformance path's shapes; returns per-kernel records."""
@@ -684,18 +747,22 @@ def phase_conformance(torch, np, gpu):
     api = gpu["api"]
     frames = synth_frames(1920, 1080, 3, seed=SEED % 991)
     counters = (gpu["cuda_pred"].LAUNCHES, gpu["cuda_inter"].LAUNCHES,
-                gpu["cuda_wave"].LAUNCHES, gpu["cuda_wavedec"].LAUNCHES)
+                gpu["cuda_wave"].LAUNCHES, gpu["cuda_wavedec"].LAUNCHES,
+                gpu["cuda_deblock"].LAUNCHES)
+    k8 = counters[4]
     for c in counters:
         for k in c:
             c[k] = 0
     enc = api.ConformanceGpuEncoder()
     enc.set_quality(16)
     chunks, recons, enc_s, stages = [], [], [], {}
-    for f in frames:
+    for i, f in enumerate(frames):
+        before = k8["deblock_frame"]
         t0 = time.perf_counter()
         chunks.append(enc.encode(f))
         torch.cuda.synchronize()
         enc_s.append(time.perf_counter() - t0)
+        deblock_once("conformance path", f"encoded frame {i}", k8, before)
         for k, v in enc.last_stats["stage_ms"].items():
             stages.setdefault(k, []).append(v)
         meta, arrays = enc.state_dict()
@@ -706,11 +773,12 @@ def phase_conformance(torch, np, gpu):
     dec = api.GpuDecoder()
     outs, dec_s, waves = [], [], []
     for i, c in enumerate(chunks):
-        before = counters[3]["wave_decode"]
+        before, k8_before = counters[3]["wave_decode"], k8["deblock_frame"]
         t0 = time.perf_counter()
         outs.append(dec.decode(c))
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
+        deblock_once("conformance path", f"decoded frame {i}", k8, k8_before)
         waves.append((dec.last_stats.get("waves"),
                       dec.last_stats.get("members")))
         k7 = counters[3]["wave_decode"] - before
@@ -721,7 +789,7 @@ def phase_conformance(torch, np, gpu):
     launches = {"pred_planes_wide": counters[0]["pred_planes_wide"],
                 "inter_search": counters[1]["inter_search"],
                 "wave_pass": counters[2]["wave_pass"],
-                **counters[3]}
+                **counters[3], **k8}
     if launches["wave_pass"] != len(frames):
         fail(f"conformance path: {launches['wave_pass']} K6 launches for "
              f"{len(frames)} frames (one wave pass each expected)")
@@ -801,6 +869,13 @@ def host_decode(np, native, stream, chunks):
     return out
 
 
+def deblock_once(path, frame, counts, before):
+    """Fails unless K8 launched exactly once since `before`."""
+    if counts["deblock_frame"] - before != 1:
+        fail(f"{path}: {frame} launched K8 {counts['deblock_frame'] - before}"
+             f" times (once per frame expected)")
+
+
 def phase_main(torch, np, gpu):
     """The main path at 1080p; returns (launch counts, summary dict)."""
     from cairo_tpu_torch import native
@@ -809,32 +884,37 @@ def phase_main(torch, np, gpu):
 
     api = gpu["api"]
     frames = synth_frames(1920, 1080, 5, seed=SEED % 1000)
-    for mod in (gpu["cuda_motion"], gpu["cuda_pred"]):
+    k8 = gpu["cuda_deblock"].LAUNCHES
+    for mod in (gpu["cuda_motion"], gpu["cuda_pred"], gpu["cuda_deblock"]):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     enc = api.GpuEncoder()
     enc.set_quality(16)
     chunks, recons, enc_s, stages = [], [], [], {}
-    for f in frames:
+    for i, f in enumerate(frames):
+        before = k8["deblock_frame"]
         t0 = time.perf_counter()
         chunks.append(enc.encode(f))
         torch.cuda.synchronize()
         enc_s.append(time.perf_counter() - t0)
+        deblock_once("main path", f"encoded frame {i}", k8, before)
         recons.append(enc.peek_destination())
         for k, v in enc.last_stats["stage_ms"].items():
             stages.setdefault(f"encode.{k}", []).append(v)
     dec = api.GpuDecoder()
     outs, dec_s = [], []
-    for c in chunks:
+    for i, c in enumerate(chunks):
+        before = k8["deblock_frame"]
         t0 = time.perf_counter()
         outs.append(dec.decode(c))
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
+        deblock_once("main path", f"decoded frame {i}", k8, before)
         for k, v in dec.last_stats.get("stage_ms", {}).items():
             stages.setdefault(f"decode.{k}", []).append(v)
     launches = {**gpu["cuda_motion"].LAUNCHES,
                 **{k: gpu["cuda_pred"].LAUNCHES[k]
-                   for k in ("gather_windows", "pred_planes")}}
+                   for k in ("gather_windows", "pred_planes")}, **k8}
 
     for i, (o, r) in enumerate(zip(outs, recons)):
         if not np.array_equal(o, r):
@@ -892,14 +972,15 @@ PROFILE_STAGES = (
     ("motion", "inter_search"), ("cuda_motion", "chroma_max_maps"),
     ("cuda_motion", "dense_select"), ("cuda_pred", "gather_windows_yuv"),
     ("cuda_pred", "pred_planes"), ("engine", "quantize_planes"),
-    ("engine", "reconstruct"), ("deblock", "deblock_frame"),
+    ("engine", "reconstruct"), ("cuda_deblock", "deblock_frame"),
     ("ops", "fdct8"), ("cuda_inter", "inter_search"),
     ("cuda_wave", "wave_pass"), ("wavefront", "_conformance_tail"),
     ("wavefront", "conformance_decode_step"), ("engine", "residual"),
     ("cuda_wavedec", "wave_decode"))
 PORT_KERNELS = ("chroma_max_kernel", "dense_select_kernel",
                 "gather_windows_kernel", "pred_planes_kernel",
-                "inter_search_kernel", "wave_decode_kernel", "wave_kernel")
+                "inter_search_kernel", "wave_decode_kernel", "wave_kernel",
+                "deblock_kernel")
 
 
 def profile_frame(torch, smi, label, warm, timed, traced):
@@ -1037,28 +1118,33 @@ def main():
     if not os.path.isdir(os.path.join(root, "src", "cairo_tpu_torch")):
         fail("src/cairo_tpu_torch is not beside this script")
     sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, os.path.join(root, "tests"))  # util_deblock (numpy)
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"phase 0: card {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    from cairo_tpu_torch.gpu import (_build, api, cuda_inter, cuda_motion,
-                                     cuda_pred, cuda_wave, cuda_wavedec, ops,
-                                     wavefront)
+    from cairo_tpu_torch.gpu import (_build, api, cuda_deblock, cuda_inter,
+                                     cuda_motion, cuda_pred, cuda_wave,
+                                     cuda_wavedec, deblock, ops, wavefront)
     gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred,
                cuda_inter=cuda_inter, cuda_wave=cuda_wave,
-               cuda_wavedec=cuda_wavedec, ops=ops, wavefront=wavefront)
+               cuda_wavedec=cuda_wavedec, cuda_deblock=cuda_deblock,
+               deblock=deblock, ops=ops, wavefront=wavefront)
     secs = _build.build_all()
     log(f"phase 1: built kernels in {secs['kernels_s']:.1f}s and the native "
         f"library in {secs['native_s']:.1f}s")
     log("kernels: K1 chroma_max_maps, K2 dense_select, K3 gather_windows, "
-        "K4 pred_planes, K5 inter_search, K6 wave_pass, K7 wave_decode")
+        "K4 pred_planes, K5 inter_search, K6 wave_pass, K7 wave_decode, "
+        "K8 deblock_frame")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gpu, smi)
         faulthandler.cancel_dump_traceback_later()
         return
 
+    usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
     recs = phase_kernels(torch, np, gpu)
+    recs["K8"] = phase_kernels_deblock(torch, gpu)
     for k, r in recs.items():
         dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
             else ""
@@ -1072,6 +1158,14 @@ def main():
             f"kernel alone {k3[label + '_device_ms']:.4f} ms (plain "
             f"{k3[label + '_plain_ms']:.3f} ms), bound "
             f"{k3[label + '_bound_ms']:.4f} ms (bytes) on {smi}")
+    k8 = recs["K8"]
+    if "deblock_kernel" not in usage:
+        fail("ptxas reported nothing for deblock_kernel")
+    log(f"phase 2: K8 at 1920x1088: {k8['ms']:.4f} ms, kernel alone "
+        f"{k8['device_ms']:.4f} ms (plain {k8['plain_ms']:.3f} ms), bound "
+        f"{k8['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes; operations "
+        f"{k8['ops'] / INT_OPS_PER_S * 1e3:.4f} ms); "
+        f"{usage['deblock_kernel']} on {smi}")
 
     launches, summary = phase_main(torch, np, gpu)
     log(f"phase 3: 1920x1080 q16, {summary['frames']} frames on {smi}: "
@@ -1098,7 +1192,6 @@ def main():
         f"us per step of its {recs['K6']['steps']}-MB chain on {smi}")
     log(f"phase 2b: K5 timed input: {100 * recs['K5']['frozen']:.1f}% of the "
         f"(MB, reference) searches frozen by the co-located candidate")
-    usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
     k7 = recs["K7"]
     for frame, pre in (("inter", ""), ("intra", "intra_")):
         log(f"phase 2b: K7 on the {frame} frame: 1 launch, "
@@ -1119,7 +1212,10 @@ def main():
         log(f"phase 2b: {kname}: {usage[kname]}")
 
     claunches, csum = phase_conformance(torch, np, gpu)
+    k8_by_path = {"fast": launches["deblock_frame"],
+                  "conformance": claunches["deblock_frame"]}
     launches.update(claunches)
+    launches["deblock_frame"] = sum(k8_by_path.values())
     log(f"phase 5: conformance encode 1920x1080 q16, {csum['frames']} frames "
         f"on {smi}: inter frames {csum['inter_encode_fps']:.2f} fps; psnr "
         f"{csum['psnr_db']:.2f} dB, {csum['kbits_per_frame']:.1f} "
@@ -1152,13 +1248,16 @@ def main():
         # no Pallas kernel: the XLA while_loop of the conformance decode
         "K7": ("wave_decode", "src/cairo_tpu_torch/gpu/csrc/wavedec.cu",
                "src/cairo_tpu/tpu/wavefront.py:986"),
+        # no Pallas kernel: the XLA fori_loop of the in-loop deblock
+        "K8": ("deblock_frame", "src/cairo_tpu_torch/gpu/csrc/deblock.cu",
+               "src/cairo_tpu/tpu/deblock.py:143"),
     }
     instances = dict(K1="chroma_max_kernel", K2="dense_select_kernel",
                      K3="gather_windows_kernel<2>",
                      K4="pred_planes_kernel<17,9>",
                      K4w="pred_planes_kernel<33,17>",
                      K5="inter_search_kernel", K6="wave_kernel",
-                     K7="wave_decode_kernel")
+                     K7="wave_decode_kernel", K8="deblock_kernel")
     kernels = []
     for k, (name, source, replaces) in meta.items():
         r = recs[k]
@@ -1176,6 +1275,9 @@ def main():
         # K7's intra frame beside its inter frame
         kernels[-1].update({k: v for k, v in r.items()
                             if k.startswith(("luma_", "chroma_", "intra_"))})
+    # K8's launches in phase 3 (fast encode and decode) and phase 5
+    # (conformance encode and wavefront decode)
+    kernels[-1]["launches_by_path"] = k8_by_path
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

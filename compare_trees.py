@@ -19,8 +19,11 @@ line, on seeded 1920x1080 content at q16:
     (chip_smoke.device_ms) and CUDA-event ms (chip_smoke.cuda_ms, host
     work included) on the arguments the decode gave it;
   * each kernel of the checkout's gpu/csrc (every __global__ function):
-    device ms and launches in one more inter frame of each path, from a
-    torch.profiler trace;
+    device ms and launches in one more inter frame of each path (fast
+    encode and decode, conformance encode, and the wavefront decode of
+    that conformance frame's chunk), from a torch.profiler trace, and
+    beside them the count and device ms of all CUDA kernels in that trace,
+    ATen's included (the launches a frame takes);
   * the sha256 of each path's stream (the chunks of the timed frames) and
     of the RGB both decoders gave, so that a change that must keep the
     bytes shows that it did.
@@ -94,16 +97,21 @@ def run_turn(src):
     names = kernel_names(src)
 
     def kernels_of(fn):
+        """The checkout's kernels in a trace of fn(), by name, and under
+        "all" every CUDA kernel of the trace."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        out = {}
+        out = {"all": (0.0, 0)}
         for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            ms = getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0.0)) / 1e3
             hit = next((k for k in names if k in e.key), None)
-            if e.device_type == DeviceType.CUDA and hit:
-                ms, n = out.get(hit, (0.0, 0))
-                out[hit] = (ms + getattr(e, "self_device_time_total", getattr(
-                    e, "self_cuda_time_total", 0.0)) / 1e3, n + e.count)
+            for key in ("all", hit) if hit else ("all",):
+                total, n = out.get(key, (0.0, 0))
+                out[key] = (total + ms, n + e.count)
         return {k: {"ms": ms, "launches": n} for k, (ms, n) in out.items()}
 
     _build.build_all()
@@ -130,7 +138,8 @@ def run_turn(src):
         conf_sha.update(chunk)
         conf_s.append(s)
         conf_chunks.append(chunk)
-    conf_kernels = kernels_of(lambda: cenc.encode(frames[3]))
+    traced = []
+    conf_kernels = kernels_of(lambda: traced.append(cenc.encode(frames[3])))
 
     # the wavefront decode of those chunks, K7's arguments kept per frame
     cdec, cdec_s, k7 = GpuDecoder(), [], []
@@ -153,6 +162,7 @@ def run_turn(src):
                            before))
     finally:
         cuda_wavedec.wave_decode = kernel
+    conf_dec_kernels = kernels_of(lambda: cdec.decode(traced[0]))
     for i, args in calls.items():
         run = functools.partial(kernel, tuple(p.clone() for p in args[0]),
                                 *args[1:])
@@ -173,7 +183,8 @@ def run_turn(src):
             "fast_rgb_sha256": fast_rgb.hexdigest(),
             "conformance_rgb_sha256": conf_rgb.hexdigest(),
             "fast_frame_kernels": fast_kernels,
-            "conformance_frame_kernels": conf_kernels}
+            "conformance_frame_kernels": conf_kernels,
+            "conformance_decode_frame_kernels": conf_dec_kernels}
 
 
 def run_pred_turn(src):
@@ -284,11 +295,17 @@ def main():
                 f"{k} {v['device_ms']:.4f}" for k, v in rec.items()
                 if isinstance(v, dict)), flush=True)
         else:
+            traced = {path: rec[f"{path}_frame_kernels"]["all"] for path in
+                      ("fast", "conformance", "conformance_decode")}
             print(f"{who}: fast encode {rec['fast_encode_fps']:.3f} fps, "
                   f"decode {rec['fast_decode_fps']:.3f} fps, conformance "
                   f"encode {rec['conformance_encode_fps']:.3f} fps, decode "
-                  f"{rec['conformance_decode_fps']:.3f} fps; K7 per frame "
-                  f"{rec['conformance_decode_k7']}", flush=True)
+                  f"{rec['conformance_decode_fps']:.3f} fps; all kernels of "
+                  f"a traced inter frame " + ", ".join(
+                      f"{path} {t['launches']} launches {t['ms']:.3f} ms"
+                      for path, t in traced.items())
+                  + f"; K7 per frame {rec['conformance_decode_k7']}",
+                  flush=True)
         turns.append(rec)
     print(json.dumps({"card": smi, "turns": turns}), flush=True)
     differ = [k for k in ("fast_stream_sha256", "conformance_stream_sha256",

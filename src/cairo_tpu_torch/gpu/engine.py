@@ -4,7 +4,7 @@
 Encode dataflow: source wire -> per-MB inter searches against the 3
 previous ring slots (motion.inter_search) -> classification merge ->
 prediction planes (K4) -> residual DCT -> adaptive QP -> quantize ->
-reconstruction into the ring slot -> band-scan deblock -> packed output
+reconstruction into the ring slot -> deblock (K8) -> packed output
 wire (block table + residual COO). The host's C++ entropy coder
 serializes the slice.
 
@@ -22,8 +22,7 @@ import torch
 
 from .. import tables
 from ..blocktypes import COPY_BIT, INTRA_BIT, MOTION_BIT
-from . import cuda_pred, ops
-from . import deblock as deblock_mod
+from . import cuda_deblock, cuda_pred, ops
 from . import motion as motion_mod
 from . import wire as wire_mod
 
@@ -176,7 +175,7 @@ def finish_planes(state, rec_y, rec_u, rec_v, frame_index, copy_mb, qp,
     if deblock:
         copy_map = copy_mb.reshape(hb, wb)
         q_map = torch.where(copy_map, 0, qp.reshape(hb, wb))
-        rec_y, rec_u, rec_v = deblock_mod.deblock_frame(
+        rec_y, rec_u, rec_v = cuda_deblock.deblock_frame(
             rec_y, rec_u, rec_v, copy_map, q_map)
     slot = (frame_index % RING).reshape(1).long()
     for key, plane in (("ring_y", rec_y), ("ring_u", rec_u),

@@ -33,8 +33,8 @@ import torch
 
 from .. import tables
 from ..blocktypes import COPY_BIT, INTRA_BIT, MOTION_BIT
-from . import cuda_inter, cuda_pred, cuda_wave, cuda_wavedec, engine, ops
-from . import deblock as deblock_mod
+from . import (cuda_deblock, cuda_inter, cuda_pred, cuda_wave, cuda_wavedec,
+               engine, ops)
 from . import wire as wire_mod
 
 MB = tables.MACROBLOCK_SIZE
@@ -151,8 +151,8 @@ def _conformance_tail(rec_y, rec_u, rec_v, table, coef_y, coef_u, coef_v,
     hb, wb = aligned_h // MB, aligned_w // MB
     copy_map = ((table["block_type"] & COPY_BIT) != 0).reshape(hb, wb)
     q_map = table["q_index"].reshape(hb, wb)
-    rec_y, rec_u, rec_v = deblock_mod.deblock_frame(rec_y, rec_u, rec_v,
-                                                    copy_map, q_map)
+    rec_y, rec_u, rec_v = cuda_deblock.deblock_frame(rec_y, rec_u, rec_v,
+                                                     copy_map, q_map)
     for key, plane in (("ring_y", rec_y), ("ring_u", rec_u),
                        ("ring_v", rec_v)):
         state[key].index_copy_(0, slot, plane.to(torch.int16)[None])

@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the CUDA kernels K1-K7 (K4 at both pad
+"""Card-only tests of the port: the CUDA kernels K1-K8 (K4 at both pad
 sets) against their plain versions, and the fast-mode and conformance
 encoders and the wavefront decode on the card against the CPU. Each test is
 marked `cuda` and skips without a CUDA card. The file imports neither jax
@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from cairo_tpu_torch.gpu import (api, cuda_inter, cuda_motion, cuda_pred,
-                                 cuda_wave, cuda_wavedec, ops, wavefront)
+from cairo_tpu_torch.gpu import (api, cuda_deblock, cuda_inter, cuda_motion,
+                                 cuda_pred, cuda_wave, cuda_wavedec, deblock,
+                                 ops, wavefront)
 from cairo_tpu_torch.synth import synth_frames
+from util_deblock import KINDS, SIZES, deblock_case
 
 RING = 4
 
@@ -599,3 +601,61 @@ def test_wavefront_decode_card_matches_cpu(dev):
                                           err_msg=f"q{quality} frame {i}")
         assert card.host_frames == cpu.host_frames == 0
         assert cuda_wavedec.LAUNCHES["wave_decode_members"] > members
+
+
+# ----------------------------------------------------------------- K8
+
+def _k8_check(tensors):
+    """K8 twice on the card, each run equal to the plain version on the
+    same inputs, which stay as they were."""
+    before = [t.clone() for t in tensors]
+    launches = cuda_deblock.LAUNCHES["deblock_frame"]
+    runs = [cuda_deblock.deblock_frame(*tensors) for _ in range(2)]
+    assert cuda_deblock.LAUNCHES["deblock_frame"] == launches + 2
+    want = deblock.deblock_frame(*tensors)
+    for run in runs:
+        for got, wnt in zip(run, want):
+            assert got.dtype == torch.int32 and got.is_contiguous()
+            _eq(got, wnt)
+    for t, b in zip(tensors, before):
+        _eq(t, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_deblock_frame_edges(dev, size, kind):
+    _k8_check([_t(a).to(dev) for a in deblock_case(kind, *size)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "int16_range"])
+def test_deblock_frame_1080p(dev, kind):
+    _k8_check([_t(a).to(dev) for a in deblock_case(kind, 1088, 1920)])
+
+
+@pytest.mark.cuda
+def test_deblock_frame_strided_planes(dev):
+    """Planes that are views into wider rows (as the conformance encoder's
+    padded reconstruction is on the CPU) are taken as contiguous copies."""
+    y, u, v, copy, q = (_t(a).to(dev)
+                        for a in deblock_case("mixed", 272, 480))
+    wide = [torch.zeros((p.shape[0], p.shape[1] + 40), dtype=torch.int32,
+                        device=dev) for p in (y, u, v)]
+    views = []
+    for big, p in zip(wide, (y, u, v)):
+        big[:, 24:24 + p.shape[1]] = p
+        views.append(big[:, 24:24 + p.shape[1]])
+    assert not views[0].is_contiguous()
+    _k8_check([*views, copy, q])
+
+
+@pytest.mark.cuda
+def test_deblock_frame_device_mismatch(dev):
+    y, u, v, copy, q = (_t(a) for a in deblock_case("mixed", 32, 48))
+    with pytest.raises(ValueError, match="copy_blocks"):
+        cuda_deblock.deblock_frame(y.to(dev), u.to(dev), v.to(dev), copy,
+                                   q.to(dev))
+    with pytest.raises(ValueError, match="u: expected a CUDA tensor"):
+        cuda_deblock.deblock_frame(y.to(dev), u, v.to(dev), copy.to(dev),
+                                   q.to(dev))
