@@ -19,11 +19,12 @@ Phases, one line each with the elapsed seconds:
      deblock_frame run twice with identical outputs and its inputs left as
      they were, at 1920x1088 (recon overshoot, copy MBs with stale
      non-zero q) and at the edge cases of its CPU tests
-     (tests/util_deblock.py: one MB, one MB row, one MB column and
-     272x480; all, no and some copy MBs, q 0 and 31, samples far beyond
-     int16, a uint8 q map); CUDA-event times and each kernel's device
-     time from a torch.profiler trace, K8's bound and ptxas registers and
-     spills;
+     (tests/util_deblock.py: one MB, one MB row, one MB column, 272x480,
+     400x208, which K8's tiles divide in neither dimension, and 112x208,
+     one tile column; all, no and some copy MBs, q 0 and 31, samples far
+     beyond int16, a uint8 q map); CUDA-event times and each kernel's
+     device time from a torch.profiler trace, K8's bound and ptxas
+     registers, shared memory and spills;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
@@ -210,9 +211,10 @@ def compare(torch, name, got, want):
 
 
 def ptxas_usage(build_log):
-    """Registers and spills per kernel from `nvcc -Xptxas -v` output:
-    {short kernel name: "N registers, S bytes spill stores, L bytes spill
-    loads"}, a template instance named with its arguments, as
+    """Registers, shared memory and spills per kernel from `nvcc -Xptxas
+    -v` output: {short kernel name: "N registers, M bytes smem, S bytes
+    spill stores, L bytes spill loads"} (no smem where ptxas reports
+    none), a template instance named with its arguments, as
     "pred_planes_kernel<17,9>"."""
     out, name = {}, None
     for line in build_log.splitlines():
@@ -227,7 +229,9 @@ def ptxas_usage(build_log):
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:
             regs = line.split("Used", 1)[1].split(",")[0].strip()
-            out[name] = f"{regs}, {spill}"
+            smem = re.search(r"(\d+) bytes smem", line)
+            smem = f"{smem[1]} bytes smem, " if smem else ""
+            out[name] = f"{regs}, {smem}{spill}"
             name = None
     return out
 
@@ -425,7 +429,7 @@ FILTER_OPS = 80
 def phase_kernels_deblock(torch, gpu):
     """K8 against its plain version at 1080p and at the edge cases, twice,
     inputs unchanged; returns the kernel's record (times at 1080p)."""
-    from util_deblock import KINDS, SIZES, deblock_case
+    from util_deblock import KINDS, SIZES, TILE_SIZES, deblock_case
 
     cd, plain = gpu["cuda_deblock"], gpu["deblock"].deblock_frame
     H, W = 1088, 1920
@@ -436,7 +440,7 @@ def phase_kernels_deblock(torch, gpu):
 
     cases = [(f"mixed {W}x{H}", on_card("mixed", H, W))]
     cases += [(f"{kind} {w}x{h}", on_card(kind, h, w))
-              for h, w in SIZES for kind in KINDS]
+              for h, w in SIZES + TILE_SIZES for kind in KINDS]
     err = 0
     for label, args in cases:
         before = tuple(a.clone() for a in args)
@@ -450,7 +454,8 @@ def phase_kernels_deblock(torch, gpu):
                 before)
     log(f"K8: two runs identical, equal to the plain version and the inputs "
         f"unchanged on {len(cases)} cases ({W}x{H}; "
-        f"{', '.join(f'{w}x{h}' for h, w in SIZES)} x {', '.join(KINDS)})")
+        f"{', '.join(f'{w}x{h}' for h, w in SIZES + TILE_SIZES)} x "
+        f"{', '.join(KINDS)})")
     args = cases[0][1]
     # every edge filtered once per row (vertical) or column (horizontal):
     # Y's at 8-px cells, U's and V's at 8-px cells of the half planes

@@ -8,9 +8,11 @@ launches the kernel of csrc/deblock.cu or raises. One call launches the
 kernel once for Y, U and V; LAUNCHES["deblock_frame"] counts those
 launches.
 
-The kernel walks independent column strips, each down all its bands (the
-source's header says why strips never exchange a sample), and computes
-each edge's strength and QP from the per-MB maps itself.
+The kernel runs one block per output tile of a plane: the tile's input
+with a 4-sample halo staged in shared memory, the deblock's three
+parallel passes there (the source's header says why three suffice and
+why tiles never wait on each other), each edge's strength and QP computed
+from the per-MB maps.
 """
 
 from __future__ import annotations
@@ -30,9 +32,12 @@ LAUNCHES = {"deblock_frame": 0}
 
 
 def _plane(t, name, shape):
-    """A plane as the kernel reads it: contiguous int32 as it comes, else
-    converted to that."""
+    """A plane as the kernel reads it: contiguous, 16-byte aligned int32
+    as it comes, else converted to that (the kernel stages 16-byte
+    chunks)."""
     t = t.to(I32).contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
     _build.check(t, name, I32, shape)
     return t
 

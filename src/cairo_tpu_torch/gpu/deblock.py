@@ -4,9 +4,13 @@ of cairo_tpu/tpu/deblock.py).
 The reference's edge order (deblock.cpp:201-254) is band 0's vertical
 edges, then per 8-row band its horizontal edges and then its vertical
 edges. Within a band the horizontal edges are pairwise disjoint, and so
-are the vertical ones, so each band runs as two vectorized passes. Bands
-stay sequential: band b's horizontal edges read band b-1's vertical-edge
-output. The plane is updated in place, band by band.
+are the vertical ones, so each band runs as two vectorized passes. This
+version keeps the reference's band order, band after band, updating the
+plane in place: band b's horizontal edges read rows that band b-1's
+vertical edges wrote. The order is deeper than the data dependence,
+which is three parallel passes (csrc/deblock.cu's header); K8 runs
+those, and this version, its oracle on the card, does not share that
+formulation.
 """
 
 from __future__ import annotations

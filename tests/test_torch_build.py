@@ -1,7 +1,7 @@
 """The port's build cache (gpu/_build.py), on the CPU with a stand-in
 compiler: a library is built once per digest, its compiler log lands
 beside it and is read back on a cache hit (chip_smoke.py reads ptxas'
-registers and spills from it), and a build that fails leaves nothing."""
+registers, shared memory and spills from it), and a build that fails leaves nothing."""
 
 import importlib.util
 import pathlib
@@ -22,6 +22,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111wave_kernelEPKiS1_S
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111wave_kernelEPKiS1_S1_S1_S1_S1_S1_S1_PiS2_S2_PsS3_S3_S1_S1_iiiS2_S2_S3_S3_S3_
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 142 registers, 520 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114deblock_kernelENS_5PlaneES0_S0_NS_4MapsEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114deblock_kernelENS_5PlaneES0_S0_NS_4MapsEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 21376 bytes smem, 440 bytes cmem[0]
 """
 
 
@@ -78,3 +82,13 @@ def test_chip_smoke_reads_registers_and_spills_from_the_log():
         "63 registers, 0 bytes stack frame, 0 bytes spill stores, 0 bytes "
         "spill loads")
     assert usage["wave_kernel"].startswith("142 registers, 8 bytes stack")
+
+
+def test_chip_smoke_reads_shared_memory_from_the_log():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.ptxas_usage(PTXAS_LOG)["deblock_kernel"] == (
+        "56 registers, 21376 bytes smem, 0 bytes stack frame, 0 bytes spill "
+        "stores, 0 bytes spill loads")

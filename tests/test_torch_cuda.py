@@ -15,7 +15,7 @@ from cairo_tpu_torch.gpu import (api, cuda_deblock, cuda_inter, cuda_motion,
                                  cuda_pred, cuda_wave, cuda_wavedec, deblock,
                                  ops, wavefront)
 from cairo_tpu_torch.synth import synth_frames
-from util_deblock import KINDS, SIZES, deblock_case
+from util_deblock import KINDS, SIZES, TILE_SIZES, deblock_case
 
 RING = 4
 
@@ -626,6 +626,31 @@ def _k8_check(tensors):
 @pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_deblock_frame_edges(dev, size, kind):
     _k8_check([_t(a).to(dev) for a in deblock_case(kind, *size)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("size", TILE_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_deblock_frame_partial_tiles(dev, size, kind):
+    """Planes that K8's tiles do not divide, and one a tile column wide."""
+    _k8_check([_t(a).to(dev) for a in deblock_case(kind, *size)])
+
+
+@pytest.mark.cuda
+def test_deblock_frame_unaligned_planes(dev):
+    """Contiguous planes that start off a 16-byte boundary (views into a
+    flat buffer at an offset of 1, 2 and 3 samples) are taken as aligned
+    copies."""
+    y, u, v, copy, q = (_t(a).to(dev)
+                        for a in deblock_case("mixed", 208, 400))
+    views = []
+    for i, p in enumerate((y, u, v)):
+        flat = torch.zeros(p.numel() + 4, dtype=torch.int32, device=dev)
+        view = flat[1 + i:1 + i + p.numel()].view(p.shape)
+        view.copy_(p)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        views.append(view)
+    _k8_check([*views, copy, q])
 
 
 @pytest.mark.cuda

@@ -6,6 +6,9 @@ import numpy as np
 # (height, width): one MB, one MB row, one MB column, a frame of 17 x 30
 # MBs
 SIZES = [(16, 16), (16, 176), (176, 16), (272, 480)]
+# sizes that K8's 32 x 120 tiles do not divide: 208x400 in neither
+# dimension, luma and chroma; 208x112 one tile column wide
+TILE_SIZES = [(208, 400), (208, 112)]
 KINDS = ["mixed", "all_copy", "no_copy", "q0", "q31", "int16_range",
          "uint8_q"]
 
