@@ -65,10 +65,19 @@ Phases, one line each with the elapsed seconds:
      and the waves and members per frame;
   6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
      give byte-identical chunks with device="cpu" and on the card, and
-     GpuDecoder decodes them to identical RGB on both, on the device path.
+     GpuDecoder decodes them to identical RGB on both, on the device path;
+  7. pipelined: each path's encoder's encode_many and GpuDecoder's
+     decode_many at 1920x1080 q16 (fast: 2 warm-up + 20 measured frames,
+     conformance: 2 + 8), then a loop over encode and decode on the same
+     frames (measure_pipelined); fails unless the chunks and RGB equal the
+     loop's, no frame took the host decoder and every kernel of the path
+     was launched in the pipelined run (its counts set to 0 just before
+     it); prints both fps (as bench.py counts them: the yield intervals
+     of the measured frames) and the per-stage medians of each run.
 The line before the last is a JSON object with each kernel's launches (K4
 once per pad set; K7's in phase 5; K8's in phases 3 and 5 together, by
-path under launches_by_path), error, times and ptxas registers (K3's
+path under launches_by_path; phase 7's pipelined runs under
+launches_pipelined), error, times and ptxas registers (K3's
 are its three-plane launch's, with its luma and chroma calls alone under
 luma_* and chroma_*); the last line is the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -853,6 +862,164 @@ def phase_conformance_cpu_vs_card(gpu):
                  f"(CPU {cpu_dec.host_frames}, card {card_dec.host_frames})")
 
 
+# the kernels each pipelined path launches: (encoder, LAUNCHES keys)
+PIPELINE_PATHS = {
+    "fast": ("GpuEncoder", ("chroma_max_maps", "dense_select",
+                            "gather_windows", "pred_planes",
+                            "deblock_frame")),
+    "conformance": ("ConformanceGpuEncoder", (
+        "pred_planes_wide", "inter_search", "wave_pass", "wave_decode",
+        "deblock_frame"))}
+
+
+def measure_pipelined(api, frames, warm, path, quality=16, device="cuda",
+                      counters=()):
+    """One path ("fast" or "conformance") pipelined and as a loop: its
+    encoder's encode_many over `frames`, then GpuDecoder.decode_many over
+    the chunks; then new instances over the same frames through a loop
+    over encode and decode. Counted as bench.py counts them: the seconds
+    between successive yields (or returns), summed over the frames after
+    the first `warm`. Beside the stages, the wall and thread CPU ms of
+    each dispatch (main thread) and finish (a worker when pipelined):
+    where a pipelined frame's interval goes. The launch counts in
+    `counters` (LAUNCHES dicts) are set to 0 just before the pipelined
+    run and read just after it. Returns one flat record; its keys start
+    with the path's name."""
+    import hashlib
+
+    import numpy as np
+
+    enc_cls = getattr(api, PIPELINE_PATHS[path][0])
+
+    def timed(obj, name, key, threads):
+        fn = getattr(obj, name)
+
+        def run(*args, **kwargs):
+            wall, cpu = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                threads.setdefault(key, []).append(
+                    time.perf_counter() - wall)
+                threads.setdefault(key + "_cpu", []).append(
+                    time.thread_time() - cpu)
+        setattr(obj, name, run)
+
+    def run(encode, decode):
+        enc, dec = enc_cls(device=device), api.GpuDecoder(device=device)
+        enc.set_quality(quality)
+        out = dict(chunks=[], rgb=[], enc_s=[], dec_s=[], enc_stages=[],
+                   dec_stages=[], threads={})
+        for obj, name, key in ((enc, "_dispatch", "encode_dispatch"),
+                               (enc, "_finish", "encode_finish"),
+                               (dec, "_dispatch_decode", "decode_dispatch"),
+                               (dec, "_finish_decode", "decode_finish")):
+            timed(obj, name, key, out["threads"])
+        for items, key, s_key, st_key, obj in (
+                (lambda: encode(enc), "chunks", "enc_s", "enc_stages", enc),
+                (lambda: decode(dec, out["chunks"]), "rgb", "dec_s",
+                 "dec_stages", dec)):
+            t0 = time.perf_counter()
+            for i, item in enumerate(items()):
+                t1 = time.perf_counter()
+                out[key].append(item)
+                out[s_key].append(t1 - t0)
+                if i >= warm:
+                    out[st_key].append(
+                        dict((obj.last_stats or {}).get("stage_ms", {})))
+                t0 = t1
+        out["host_frames"] = dec.host_frames
+        return out
+
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    piped = run(lambda enc: enc.encode_many(frames),
+                lambda dec, chunks: dec.decode_many(chunks))
+    launches = {k: v for c in counters for k, v in c.items()}
+    loop = run(lambda enc: (enc.encode(f) for f in frames),
+               lambda dec, chunks: (dec.decode(c) for c in chunks))
+
+    def fps(seconds):
+        return (len(frames) - warm) / sum(seconds[warm:])
+
+    def medians(stages):
+        return {k: float(np.median([s[k] for s in stages if k in s]))
+                for k in (stages[0] if stages else {})}
+
+    def thread_ms(threads):
+        return {k: 1e3 * float(np.median(v[warm:]))
+                for k, v in threads.items()}
+
+    def sha(items):
+        h = hashlib.sha256()
+        for item in items:
+            h.update(bytes(item) if isinstance(item, bytes)
+                     else item.tobytes())
+        return h.hexdigest()
+
+    return {
+        f"{path}_frames": len(frames), f"{path}_warm": warm,
+        f"{path}_encode_fps": fps(piped["enc_s"]),
+        f"{path}_encode_loop_fps": fps(loop["enc_s"]),
+        f"{path}_decode_fps": fps(piped["dec_s"]),
+        f"{path}_decode_loop_fps": fps(loop["dec_s"]),
+        f"{path}_encode_stage_ms": medians(piped["enc_stages"]),
+        f"{path}_encode_loop_stage_ms": medians(loop["enc_stages"]),
+        f"{path}_decode_stage_ms": medians(piped["dec_stages"]),
+        f"{path}_decode_loop_stage_ms": medians(loop["dec_stages"]),
+        f"{path}_threads_ms": thread_ms(piped["threads"]),
+        f"{path}_loop_threads_ms": thread_ms(loop["threads"]),
+        f"{path}_stream_sha256": sha(piped["chunks"]),
+        f"{path}_rgb_sha256": sha(piped["rgb"]),
+        f"{path}_chunks_equal_loop": piped["chunks"] == loop["chunks"],
+        f"{path}_rgb_equal_loop": all(
+            np.array_equal(a, b) for a, b in zip(piped["rgb"], loop["rgb"]))
+        and len(piped["rgb"]) == len(loop["rgb"]) == len(frames),
+        f"{path}_host_frames": piped["host_frames"] + loop["host_frames"],
+        f"{path}_launches": launches}
+
+
+def phase_pipelined(gpu, smi):
+    """Phase 7: both paths pipelined against their loops at 1920x1080 q16
+    (fast: 2 + 20 frames, conformance: 2 + 8); returns the records."""
+    from cairo_tpu_torch.synth import synth_frames
+
+    frames = synth_frames(1920, 1080, 22, seed=SEED % 983)
+    counters = [gpu[m].LAUNCHES for m in (
+        "cuda_motion", "cuda_pred", "cuda_inter", "cuda_wave",
+        "cuda_wavedec", "cuda_deblock")]
+    recs = {}
+    for path, n in (("fast", 22), ("conformance", 10)):
+        t0 = time.perf_counter()
+        rec = measure_pipelined(gpu["api"], frames[:n], 2, path,
+                                counters=counters)
+        if not rec[f"{path}_chunks_equal_loop"]:
+            fail(f"phase 7: {path} encode_many chunks differ from the loop's")
+        if not rec[f"{path}_rgb_equal_loop"]:
+            fail(f"phase 7: {path} decode_many RGB differs from the loop's")
+        if rec[f"{path}_host_frames"]:
+            fail(f"phase 7: {path}: {rec[f'{path}_host_frames']} frames "
+                 f"took the host decoder")
+        for name in PIPELINE_PATHS[path][1]:
+            if not rec[f"{path}_launches"][name]:
+                fail(f"phase 7: {path} pipelined run never launched {name}")
+        log(f"phase 7: {path} 1920x1080 q16, {n - 2} measured frames after "
+            f"2 on {smi}: encode_many {rec[f'{path}_encode_fps']:.3f} fps "
+            f"(loop {rec[f'{path}_encode_loop_fps']:.3f}), decode_many "
+            f"{rec[f'{path}_decode_fps']:.3f} fps (loop "
+            f"{rec[f'{path}_decode_loop_fps']:.3f}); stage medians (ms) "
+            f"encode {rec[f'{path}_encode_stage_ms']} (loop "
+            f"{rec[f'{path}_encode_loop_stage_ms']}), decode "
+            f"{rec[f'{path}_decode_stage_ms']} (loop "
+            f"{rec[f'{path}_decode_loop_stage_ms']}); dispatch and finish "
+            f"wall and thread CPU ms {rec[f'{path}_threads_ms']} (loop "
+            f"{rec[f'{path}_loop_threads_ms']}); pipelined launches "
+            f"{rec[f'{path}_launches']}; {time.perf_counter() - t0:.1f} s")
+        recs.update(rec)
+    return recs
+
+
 def host_decode(np, native, stream, chunks):
     """Decodes a stream with the native sequential C++ decoder alone."""
     from cairo_tpu_torch.blocktypes import BlockTable
@@ -1235,6 +1402,8 @@ def main():
     log("phase 6: conformance CPU and card chunks byte-identical and decoded "
         "to identical RGB on the device path at 176x144, q 4, 16, 29")
 
+    piped = phase_pipelined(gpu, smi)
+
     meta = {
         "K1": ("chroma_max_maps", "src/cairo_tpu_torch/gpu/csrc/motion.cu",
                "src/cairo_tpu/tpu/pallas_motion.py:314"),
@@ -1270,7 +1439,10 @@ def main():
         t_ops = r["ops"] / INT_OPS_PER_S * 1e3
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
+            launches=launches[name], launches_pipelined=sum(
+                piped[f"{path}_launches"].get(name, 0)
+                for path in PIPELINE_PATHS),
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None, ptxas=usage[instances[k]]))

@@ -26,7 +26,14 @@ line, on seeded 1920x1080 content at q16:
     ATen's included (the launches a frame takes);
   * the sha256 of each path's stream (the chunks of the timed frames) and
     of the RGB both decoders gave, so that a change that must keep the
-    bytes shows that it did.
+    bytes shows that it did;
+  * pipelined throughput, under keys that start with "pipelined_": each
+    path's encoder's encode_many and GpuDecoder.decode_many against a loop
+    over encode and decode on the same frames (fast: 2 warm-up + 20
+    measured frames, conformance: 2 + 8), counted as bench.py counts
+    them (chip_smoke.measure_pipelined), with per-stage medians and the
+    sha256 of the pipelined stream and RGB. A checkout whose encode_many
+    and decode_many are loops measures its loop twice.
 With --pred-kernels a turn times K3 (gather_windows) and K4
 (pred_planes) call by call instead, each checked exact against its plain
 version (chip_smoke.compare), on seeded 1920x1088 inputs of the ranges
@@ -44,8 +51,9 @@ that drift of the card or the host shows as a difference between the two
 turns of one checkout. The first line printed is the card's name and
 power limit, then one line per turn; the last is a JSON object with
 every turn. Exits non-zero without a CUDA device, when a turn fails, or
-(end to end) when a turn's fast or conformance stream or decoded RGB
-differs from the first turn's, after printing every turn.
+(end to end) when a turn's fast or conformance stream or decoded RGB,
+pipelined or not, differs from the first turn's, or a turn's pipelined
+output from its loop's, after printing every turn.
 """
 
 from __future__ import annotations
@@ -86,7 +94,8 @@ def run_turn(src):
                                  GpuEncoder)
     from cairo_tpu_torch.gpu import _build, cuda_wavedec
     from cairo_tpu_torch.synth import synth_frames
-    from chip_smoke import cuda_ms, device_ms
+    from cairo_tpu_torch.gpu import api
+    from chip_smoke import cuda_ms, device_ms, measure_pipelined
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -169,7 +178,11 @@ def run_turn(src):
         k7[i]["device_ms"] = device_ms(torch, run, "wave_decode_kernel",
                                        per_call=k7[i]["launches"])
         k7[i]["events_ms"] = cuda_ms(torch, run, 10)
+    piped_frames = synth_frames(1920, 1080, 22, seed=SEED % 983)
+    piped = {**measure_pipelined(api, piped_frames, 2, "fast"),
+             **measure_pipelined(api, piped_frames[:10], 2, "conformance")}
     return {"src": src,
+            **{f"pipelined_{k}": v for k, v in piped.items()},
             "fast_encode_fps": 4 / sum(enc_s[1:]),
             "fast_decode_fps": 4 / sum(dec_s[1:]),
             "conformance_encode_fps": 2 / sum(conf_s[1:]),
@@ -306,14 +319,28 @@ def main():
                       for path, t in traced.items())
                   + f"; K7 per frame {rec['conformance_decode_k7']}",
                   flush=True)
+            print(f"{who}: pipelined " + ", ".join(
+                f"{path} encode_many {rec[f'pipelined_{path}_encode_fps']:.3f}"
+                f" fps (loop {rec[f'pipelined_{path}_encode_loop_fps']:.3f}),"
+                f" decode_many {rec[f'pipelined_{path}_decode_fps']:.3f} fps"
+                f" (loop {rec[f'pipelined_{path}_decode_loop_fps']:.3f})"
+                for path in ("fast", "conformance")), flush=True)
         turns.append(rec)
     print(json.dumps({"card": smi, "turns": turns}), flush=True)
     differ = [k for k in ("fast_stream_sha256", "conformance_stream_sha256",
-                          "fast_rgb_sha256", "conformance_rgb_sha256")
+                          "fast_rgb_sha256", "conformance_rgb_sha256",
+                          "pipelined_fast_stream_sha256",
+                          "pipelined_conformance_stream_sha256",
+                          "pipelined_fast_rgb_sha256",
+                          "pipelined_conformance_rgb_sha256")
               if not pred and len({t[k] for t in turns}) > 1]
+    differ += [f"{t['tree']} {k}" for t in turns for k in (
+        "pipelined_fast_chunks_equal_loop", "pipelined_fast_rgb_equal_loop",
+        "pipelined_conformance_chunks_equal_loop",
+        "pipelined_conformance_rgb_equal_loop") if not pred and not t[k]]
     if differ:
-        raise SystemExit(f"compare_trees: streams differ between turns "
-                         f"({', '.join(differ)})")
+        raise SystemExit(f"compare_trees: streams or RGB differ between "
+                         f"turns or from the loop ({', '.join(differ)})")
 
 
 if __name__ == "__main__":

@@ -15,8 +15,19 @@ Vectors no conforming encoder emits, and every frame when
 use_wavefront_decode is False, take the native sequential C++ decoder,
 which the stream then keeps; `host_frames` counts those frames. All run
 on `device` ("cuda" by default, which raises without a card; the tests
-pass "cpu"). Frames are processed one at a time: encode_many /
-decode_many give the same results as a loop.
+pass "cpu").
+
+encode_many and decode_many pipeline as the JAX package's do
+(gpu/pipeline.py): each instance enqueues its device work on a CUDA
+stream of its own and downloads its outputs on a copy stream into pinned
+memory, while worker threads fetch and entropy-code (or convert) the
+previous frame and the encoders convert the next frame's RGB one frame
+ahead; a decode holds at most two frames in flight. The encoders' chunks
+are TpuEncoder.encode_many's and ConformanceTpuEncoder.encode_many's,
+also when set_quality or insert_intra is called between yields (which
+then land on the frame after the one a loop over encode gives); the
+decoder's RGB is a loop's. encode() and decode() run one frame through
+the same calls.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from ..cpuref.stream import (FRAME_DESC_SIZE, HEADER_SIZE, _FRAME_FMT,
 from ..xmath import clip_range
 from . import engine, wavefront
 from . import wire as wire_mod
+from .pipeline import DeviceQueue, pipelined_decode, pipelined_encode
 
 MB = tables.MACROBLOCK_SIZE
 RING = tables.REFERENCE_FRAME_COUNT
@@ -69,12 +81,8 @@ def state_from_numpy(arrays, device, keys=STATE_KEYS) -> dict:
         device=device).clone() for k in keys}
 
 
-def _state_to_numpy(state, keys=STATE_KEYS) -> dict:
-    return {k: state[k].cpu().numpy() for k in keys}
-
-
-def _upload(buf: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(buf)).to(device)
+def _state_to_numpy(queue, state, keys=STATE_KEYS) -> dict:
+    return {k: queue.read(state[k]) for k in keys}
 
 
 class GpuEncoder:
@@ -86,6 +94,7 @@ class GpuEncoder:
                 "this CodecConfig combination is not supported by the fast "
                 "path (cairo_tpu.cpuref.api.Evx1Encoder runs it)")
         self.device = resolve_device(device)
+        self._q = DeviceQueue(self.device)
         self._state = None
         self._last_out = None
         self._last_rgb = None
@@ -121,23 +130,32 @@ class GpuEncoder:
             raise ValueError("frame dimensions changed mid-stream")
         return header
 
-    def _dispatch(self, rgb):
-        """Runs one frame's device work; returns what the entropy stage
-        needs."""
-        header = self._begin_frame(rgb)
-        frame_desc = struct.pack(_FRAME_FMT, self.frame_type,
-                                 self.frame_index, self.quality)
-        t0 = time.perf_counter()
-        src_fmt, src_buf = native.rgb_to_yuv5d(rgb, self._aw, self._ah,
-                                               self.frame_index, self.quality)
-        self._state, out = engine.encode_step(
-            _upload(src_buf, self.device), self._state, aligned_w=self._aw,
-            aligned_h=self._ah, frame_w=self.width, frame_h=self.height,
-            is_inter=self.frame_type == FRAME_INTER,
-            n_refs=self.config.reference_frame_count,
-            deblock=self.config.enable_deblocking,
-            adaptive=self.config.adaptive_quantization, src_fmt=src_fmt)
+    def _dispatch(self, rgb, src_wire=None):
+        """Enqueues one frame's device work and the download of its output
+        wire; returns what the entropy stage needs. `src_wire`: the
+        frame's (format, source wire) from native.rgb_to_yuv5d, made with
+        the frame index and quality this frame carries (encode_many
+        converts one frame ahead)."""
+        with self._q.steps():
+            header = self._begin_frame(rgb)
+            frame_desc = struct.pack(_FRAME_FMT, self.frame_type,
+                                     self.frame_index, self.quality)
+            t0 = time.perf_counter()
+            if src_wire is None:
+                src_wire = native.rgb_to_yuv5d(
+                    rgb, self._aw, self._ah, self.frame_index, self.quality)
+            src_fmt, src_buf = src_wire
+            self._state, out = engine.encode_step(
+                self._q.upload(src_buf)[0], self._state, aligned_w=self._aw,
+                aligned_h=self._ah, frame_w=self.width, frame_h=self.height,
+                is_inter=self.frame_type == FRAME_INTER,
+                n_refs=self.config.reference_frame_count,
+                deblock=self.config.enable_deblocking,
+                adaptive=self.config.adaptive_quantization, src_fmt=src_fmt)
+        done = self._q.mark()
         pending = dict(header=header, frame_desc=frame_desc, out=out,
+                       done=done,
+                       wire=self._q.download({"wire": out["wire"]}, done),
                        frame_index=self.frame_index,
                        frame_type=self.frame_type, quality=self.quality,
                        t_dispatch=t0)
@@ -151,28 +169,35 @@ class GpuEncoder:
         return pending
 
     def _finish(self, pending) -> bytes:
+        """Fetches one frame's output and entropy-codes it (on a worker
+        under encode_many). Device tensors beyond the wire are read after
+        the frame's event: the tail, the exact planes (their tensors are
+        the frame's own, since each step rebinds the state's coefficient
+        planes) and the self-check's fields."""
         dev_out = pending["out"]
-        buf = dev_out["wire"].cpu().numpy()
+
+        def fetch(key):
+            return self._q.fetch(dev_out[key], pending["done"])
+
+        buf = pending["wire"].wait()["wire"]
         t_dev = time.perf_counter()
         n = (self._aw // MB) * (self._ah // MB)
         out, count, pos, val = wire_mod.unpack_encode_wire(
-            buf, n, tail=lambda: dev_out["wire_tail"].cpu().numpy())
+            buf, n, tail=lambda: fetch("wire_tail"))
         copy = (out["block_type"].astype(np.int32) & COPY_BIT) != 0
         if count <= wire_mod.COO_K:
             wire_mod.apply_coo_np(self._coef_y, self._coef_u, self._coef_v,
                                   copy, count, pos, val)
         else:  # COO overflow: take the exact planes
-            np.copyto(self._coef_y, dev_out["coef_y"].cpu().numpy())
-            np.copyto(self._coef_u, dev_out["coef_u"].cpu().numpy())
-            np.copyto(self._coef_v, dev_out["coef_v"].cpu().numpy())
+            np.copyto(self._coef_y, fetch("coef_y"))
+            np.copyto(self._coef_u, fetch("coef_u"))
+            np.copyto(self._coef_v, fetch("coef_v"))
         cy, cu, cv = self._coef_y, self._coef_u, self._coef_v
         if pending["frame_index"] == 0:
             # one-time wire self-check (guards the device byte order)
-            assert np.array_equal(out["block_type"],
-                                  dev_out["block_type"].cpu().numpy())
-            assert np.array_equal(out["variance"],
-                                  dev_out["variance"].cpu().numpy())
-            assert np.array_equal(cy, dev_out["coef_y"].cpu().numpy())
+            assert np.array_equal(out["block_type"], fetch("block_type"))
+            assert np.array_equal(out["variance"], fetch("variance"))
+            assert np.array_equal(cy, fetch("coef_y"))
         # copy blocks keep the table's previous q_index/variance (the
         # reference's clear_block_desc quirk, common.cpp:67-73); peek-only
         out = dict(out)
@@ -200,9 +225,9 @@ class GpuEncoder:
         return self._finish(self._dispatch(rgb))
 
     def encode_many(self, frames):
-        """Yields one byte chunk per input frame."""
-        for frame in frames:
-            yield self.encode(frame)
+        """Pipelined encode (gpu/pipeline.py): yields one byte chunk per
+        input frame."""
+        return pipelined_encode(self, frames)
 
     # -- debug/peek views (evx1enc.cpp:170-305 parity) ---------------------
 
@@ -214,7 +239,7 @@ class GpuEncoder:
     def peek_destination(self) -> np.ndarray:
         """The last frame's reconstruction, as the decoder will see it."""
         slot = (self.frame_index - 1) % RING
-        y, u, v = (self._state[k][slot].cpu().numpy()
+        y, u, v = (self._q.read(self._state[k][slot])
                    for k in ("ring_y", "ring_u", "ring_v"))
         return cpu_imaging.yuv420_to_rgb(y, u, v, self.width, self.height)
 
@@ -261,8 +286,8 @@ class GpuEncoder:
         meta = dict(kind="gpu_encoder", width=self.width, height=self.height,
                     frame_index=self.frame_index, frame_type=self.frame_type,
                     quality=self.quality, init=self._state is not None)
-        arrays = _state_to_numpy(self._state) if self._state is not None \
-            else {}
+        arrays = _state_to_numpy(self._q, self._state) \
+            if self._state is not None else {}
         return meta, arrays
 
     def load_state_dict(self, meta, arrays):
@@ -273,7 +298,8 @@ class GpuEncoder:
         if meta["init"]:
             self.width, self.height = meta["width"], meta["height"]
             self._aw, self._ah = _align(self.width), _align(self.height)
-            self._state = state_from_numpy(arrays, self.device)
+            with self._q.steps():
+                self._state = state_from_numpy(arrays, self.device)
             self._coef_y = np.array(arrays["coef_y"], np.int16)
             self._coef_u = np.array(arrays["coef_u"], np.int16)
             self._coef_v = np.array(arrays["coef_v"], np.int16)
@@ -288,6 +314,7 @@ class ConformanceGpuEncoder:
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
+        self._q = DeviceQueue(self.device)
         self._state = None
         self.frame_type = FRAME_INTRA
         self.frame_index = 0
@@ -301,27 +328,36 @@ class ConformanceGpuEncoder:
     def insert_intra(self):
         self.frame_type = FRAME_INTRA
 
-    def _dispatch(self, rgb):
+    def _dispatch(self, rgb, src_wire=None):
+        """Enqueues one frame's wave pass and the download of all its
+        outputs (`src_wire` as in GpuEncoder._dispatch). The outputs
+        alias the state's stale fields and coefficient planes, which the
+        next step rebinds and never writes in place, so they stay the
+        frame's own."""
         height, width = rgb.shape[:2]
         header = b""
-        if self._state is None:
-            self.width, self.height = width, height
-            self._aw, self._ah = _align(width), _align(height)
-            self._state = wavefront.init_state(self._aw, self._ah,
-                                               self.device)
-            header = pack_header(width, height)
-        if (width, height) != (self.width, self.height):
-            raise ValueError("frame dimensions changed mid-stream")
-        frame_desc = struct.pack(_FRAME_FMT, self.frame_type,
-                                 self.frame_index, self.quality)
-        t0 = time.perf_counter()
-        src_fmt, src_buf = native.rgb_to_yuv5d(rgb, self._aw, self._ah,
-                                               self.frame_index, self.quality)
-        self._state, out = wavefront.conformance_encode_step(
-            _upload(src_buf, self.device), self._state, aligned_w=self._aw,
-            aligned_h=self._ah, frame_w=self.width, frame_h=self.height,
-            is_inter=self.frame_type == FRAME_INTER, src_fmt=src_fmt)
-        pending = dict(header=header, frame_desc=frame_desc, out=out,
+        with self._q.steps():
+            if self._state is None:
+                self.width, self.height = width, height
+                self._aw, self._ah = _align(width), _align(height)
+                self._state = wavefront.init_state(self._aw, self._ah,
+                                                   self.device)
+                header = pack_header(width, height)
+            if (width, height) != (self.width, self.height):
+                raise ValueError("frame dimensions changed mid-stream")
+            frame_desc = struct.pack(_FRAME_FMT, self.frame_type,
+                                     self.frame_index, self.quality)
+            t0 = time.perf_counter()
+            if src_wire is None:
+                src_wire = native.rgb_to_yuv5d(
+                    rgb, self._aw, self._ah, self.frame_index, self.quality)
+            src_fmt, src_buf = src_wire
+            self._state, out = wavefront.conformance_encode_step(
+                self._q.upload(src_buf)[0], self._state, aligned_w=self._aw,
+                aligned_h=self._ah, frame_w=self.width, frame_h=self.height,
+                is_inter=self.frame_type == FRAME_INTER, src_fmt=src_fmt)
+        pending = dict(header=header, frame_desc=frame_desc,
+                       out=self._q.download(out, self._q.mark()),
                        frame_index=self.frame_index,
                        frame_type=self.frame_type, quality=self.quality,
                        t_dispatch=t0)
@@ -333,7 +369,7 @@ class ConformanceGpuEncoder:
         return pending
 
     def _finish(self, pending) -> bytes:
-        out = {k: v.cpu().numpy() for k, v in pending["out"].items()}
+        out = pending["out"].wait()
         t_dev = time.perf_counter()
         bt = BlockTable(**{k: out[k] for k in _BT_FIELDS})
         slice_bytes, _ = native.encode_slice(bt, out["coef_y"],
@@ -353,10 +389,9 @@ class ConformanceGpuEncoder:
         return self._finish(self._dispatch(rgb))
 
     def encode_many(self, frames):
-        """Yields one byte chunk per input frame (frame by frame: the same
-        bytes as a loop over encode)."""
-        for frame in frames:
-            yield self.encode(frame)
+        """Pipelined encode (gpu/pipeline.py): yields one byte chunk per
+        input frame."""
+        return pipelined_encode(self, frames)
 
     # -- checkpoint / resume (checkpoint.py format) -------------------------
 
@@ -365,7 +400,8 @@ class ConformanceGpuEncoder:
                     height=self.height, frame_index=self.frame_index,
                     frame_type=self.frame_type, quality=self.quality,
                     init=self._state is not None)
-        arrays = _state_to_numpy(self._state, wavefront.STATE_KEYS) \
+        arrays = _state_to_numpy(self._q, self._state,
+                                 wavefront.STATE_KEYS) \
             if self._state is not None else {}
         return meta, arrays
 
@@ -378,8 +414,9 @@ class ConformanceGpuEncoder:
         if meta["init"]:
             self.width, self.height = meta["width"], meta["height"]
             self._aw, self._ah = _align(self.width), _align(self.height)
-            self._state = state_from_numpy(arrays, self.device,
-                                           wavefront.STATE_KEYS)
+            with self._q.steps():
+                self._state = state_from_numpy(arrays, self.device,
+                                               wavefront.STATE_KEYS)
 
 
 class GpuDecoder:
@@ -391,6 +428,7 @@ class GpuDecoder:
                 "this CodecConfig combination is not supported by the fast "
                 "path (cairo_tpu.cpuref.api.Evx1Decoder runs it)")
         self.device = resolve_device(device)
+        self._q = DeviceQueue(self.device)
         self._state = None
         self._native = None  # sequential C++ decoder once a stream needs it
         # wave-path frames (intra-motion blocks, |mv| up to 32) decode on
@@ -404,7 +442,8 @@ class GpuDecoder:
     def _init(self, width, height):
         self.width, self.height = width, height
         self._aw, self._ah = _align(width), _align(height)
-        self._state = engine.init_state(self._aw, self._ah, self.device)
+        with self._q.steps():
+            self._state = engine.init_state(self._aw, self._ah, self.device)
         n = (self._aw // MB) * (self._ah // MB)
         self._bt = BlockTable.zeros(n)
         self._coef_y = np.zeros((self._ah, self._aw), np.int16)
@@ -420,8 +459,10 @@ class GpuDecoder:
                          else "yuv8")
 
     def _dispatch_decode(self, chunk: bytes) -> dict:
-        """Parses one chunk and runs its device work. Frames that need the
-        sequential decoder are reconstructed on the host here."""
+        """Parses one chunk and enqueues its device work and the download
+        of its output. Frames that need the sequential decoder are
+        reconstructed on the host here. The host planes that the parser
+        rewrites reach the device only as copies (DeviceQueue.upload)."""
         offset = 0
         if self._state is None:
             width, height = parse_header(
@@ -459,8 +500,14 @@ class GpuDecoder:
         if self._native is not None or not wide_mv or not im_reach_ok or \
                 (needs_wave and not self.use_wavefront_decode):
             self.host_frames += 1
-            return dict(kind="host", rgb=self._decode_sequential(index))
+            return dict(kind="host", rgb=self._decode_sequential(index),
+                        host_frames=self.host_frames)
+        with self._q.steps():
+            return self._dispatch_device(index, bt, im_mask, needs_wave,
+                                         t0, t_ent)
 
+    def _dispatch_device(self, index, bt, im_mask, needs_wave, t0, t_ent):
+        """The device part of _dispatch_decode, on the compute stream."""
         pos, val, count = native.extract_coo(
             bt.block_type, self._aw // MB, self._coef_y, self._coef_u,
             self._coef_v, wire_mod.COO_K)
@@ -482,57 +529,70 @@ class GpuDecoder:
             kw.update(n_active=n_active, n_members=int(im_mask.sum()))
             if count <= wire_mod.COO_K:
                 self._state, yuv = wavefront.conformance_decode_step(
-                    _upload(np.concatenate([head, *coo, *tail]),
-                            self.device), self._state, coo_k=coo_k, **kw)
+                    self._q.upload(np.concatenate([head, *coo, *tail]))[0],
+                    self._state, coo_k=coo_k, **kw)
             else:
-                # COO overflow: the dense coefficient planes, as copies
-                # (the next frame's parser rewrites the host planes)
+                # COO overflow: the dense coefficient planes
                 self._state, yuv = wavefront.conformance_decode_step_dense(
-                    _upload(np.concatenate([head, *tail]), self.device),
-                    *(_upload(p.copy(), self.device) for p in (
-                        self._coef_y, self._coef_u, self._coef_v)),
-                    self._state, **kw)
+                    *self._q.upload(np.concatenate([head, *tail]),
+                                    self._coef_y, self._coef_u,
+                                    self._coef_v), self._state, **kw)
             return self._wire_pending(yuv, index, t0, t_ent, n_active,
                                       kw["n_members"])
         if count <= wire_mod.COO_K:
             head = np.array([index, 0], np.int32).view(np.uint8)
             self._state, yuv = engine.decode_step_coo(
-                _upload(np.concatenate([head, *coo,
-                                        wire_mod.pack_table_np(bt)]),
-                        self.device), self._state, coo_k=coo_k, **kw)
+                self._q.upload(np.concatenate(
+                    [head, *coo, wire_mod.pack_table_np(bt)]))[0],
+                self._state, coo_k=coo_k, **kw)
             return self._wire_pending(yuv, index, t0, t_ent, 0, 0)
         # dense fallback (residual volume beyond the COO capacity)
-        table = {k: _upload(getattr(bt, k), self.device)
-                 for k in _BT_FIELDS if k != "variance"}
-        coef = {k: _upload(getattr(self, "_" + k), self.device)
-                for k in ("coef_y", "coef_u", "coef_v")}
+        fields = [k for k in _BT_FIELDS if k != "variance"]
+        planes = ("coef_y", "coef_u", "coef_v")
+        up = self._q.upload(*(getattr(bt, k) for k in fields),
+                            *(getattr(self, "_" + k) for k in planes))
         self._state, rgb = engine.decode_step(
-            table, coef, self._state, index, width=self.width,
-            height=self.height, aligned_w=self._aw, aligned_h=self._ah,
+            dict(zip(fields, up)), dict(zip(planes, up[len(fields):])),
+            self._state, index, width=self.width, height=self.height,
+            aligned_w=self._aw, aligned_h=self._ah,
             deblock=self.config.enable_deblocking)
-        return dict(kind="dense", rgb=rgb)
+        return dict(kind="dense", host_frames=self.host_frames,
+                    download=self._q.download({"rgb": rgb}, self._q.mark()))
 
     def _wire_pending(self, yuv, index, t0, t_ent, waves, members):
-        """The pending record of a frame decoded to a YUV wire, with views
-        of the ring slot it wrote (TpuDecoder._ring_slot_refs): the exact
-        planes, should the wire overflow. Decoding runs frame by frame and
-        the slot is rewritten only RING frames later, so views suffice; a
-        pipelined decode must clone them or hold the slot."""
+        """The pending record of a frame decoded to a YUV wire: the
+        wire's download, and views of the ring slot the frame wrote
+        (TpuDecoder._ring_slot_refs), the exact planes should the wire
+        overflow, read after the frame's event. The slot is held, not
+        cloned: decode_many keeps at most two frames in flight and a slot
+        is rewritten only RING frames later."""
         slot = index % RING
         ring = tuple(self._state[k][slot] for k in ("ring_y", "ring_u",
                                                     "ring_v"))
-        return dict(kind="wire", yuv=yuv, ring=ring, waves=waves,
-                    members=members, t0=t0, t_ent=t_ent,
+        done = self._q.mark()
+        return dict(kind="wire", download=self._q.download({"yuv": yuv}, done),
+                    done=done, ring=ring, waves=waves, members=members,
+                    host_frames=self.host_frames, t0=t0, t_ent=t_ent,
                     t_dispatch=time.perf_counter())
 
+    def _fetch_decode(self, pending) -> dict:
+        """The fetch lane: waits for the frame's download (its YUV wire,
+        or the dense fallback's RGB)."""
+        if "download" in pending:
+            pending["fetched"] = pending.pop("download").wait()
+            pending["t_fetch"] = time.perf_counter()
+        return pending
+
     def _finish_decode(self, pending) -> np.ndarray:
+        """The convert lane: the frame's RGB."""
+        self._fetch_decode(pending)
         kind = pending["kind"]
         stats = dict(path="host" if kind == "host" else "device",
-                     host_frames=self.host_frames)
+                     host_frames=pending["host_frames"])
         if kind == "host":
             rgb = pending["rgb"]
         elif kind == "dense":
-            rgb = pending["rgb"].cpu().numpy()
+            rgb = pending["fetched"]["rgb"]
         else:
             rgb, stats["stage_ms"] = self._wire_to_rgb(pending)
             stats.update(waves=pending["waves"], members=pending["members"])
@@ -540,12 +600,11 @@ class GpuDecoder:
         return rgb
 
     def _wire_to_rgb(self, pending):
-        """Fetches the YUV wire and converts it on the host; returns (rgb,
-        stage ms). An overflowed exception list means the wire was lossy:
-        the exact reconstruction is fetched from the ring-slot views taken
-        at dispatch (never from the live state)."""
-        buf = pending["yuv"].cpu().numpy()
-        t_fetch = time.perf_counter()
+        """Converts the fetched YUV wire on the host; returns (rgb, stage
+        ms). An overflowed exception list means the wire was lossy: the
+        exact reconstruction is fetched from the ring-slot views taken at
+        dispatch (never from the live state)."""
+        buf, t_fetch = pending["fetched"]["yuv"], pending["t_fetch"]
         if self._out_fmt == "yuv5d":
             rgb, exc_count = native.yuv5d_wire_to_rgb(
                 buf, self._aw, self._ah, self.width, self.height,
@@ -557,7 +616,8 @@ class GpuDecoder:
                 wire_mod.EXC_K)
             exc_cap = wire_mod.EXC_K
         if exc_count > exc_cap:
-            y, u, v = (p.cpu().numpy() for p in pending["ring"])
+            y, u, v = (self._q.fetch(p, pending["done"])
+                       for p in pending["ring"])
             rgb = cpu_imaging.yuv420_to_rgb(y, u, v, self.width, self.height)
         stage_ms = dict(
             entropy=(pending["t_ent"] - pending["t0"]) * 1e3,
@@ -571,9 +631,9 @@ class GpuDecoder:
         return self._finish_decode(self._dispatch_decode(chunk))
 
     def decode_many(self, chunks):
-        """Yields one RGB frame per chunk."""
-        for chunk in chunks:
-            yield self.decode(chunk)
+        """Pipelined decode (gpu/pipeline.py): yields one RGB frame per
+        chunk."""
+        return pipelined_decode(self, chunks)
 
     # -- checkpoint / resume (checkpoint.py format, TpuDecoder-compatible) --
 
@@ -583,7 +643,7 @@ class GpuDecoder:
                     init=self._state is not None)
         arrays = {}
         if self._state is not None:
-            arrays = _state_to_numpy(self._state)
+            arrays = _state_to_numpy(self._q, self._state)
             if self._native is not None:
                 # host-side state is authoritative in sequential mode
                 rings = [self._native.get_ring(s) for s in range(RING)]
@@ -604,7 +664,8 @@ class GpuDecoder:
         self._native = None  # resume on the device path until needed again
         if meta["init"]:
             self._init(meta["width"], meta["height"])
-            self._state = state_from_numpy(arrays, self.device)
+            with self._q.steps():
+                self._state = state_from_numpy(arrays, self.device)
             self._coef_y[:] = arrays["host_coef_y"]
             self._coef_u[:] = arrays["host_coef_u"]
             self._coef_v[:] = arrays["host_coef_v"]
@@ -622,7 +683,7 @@ class GpuDecoder:
                     "sequential decode (intra-motion streams) supports the "
                     "conformance config only")
             self._native = native.NativeDecoder(self._aw, self._ah)
-            rings = [self._state[k].cpu().numpy()
+            rings = [self._q.read(self._state[k])
                      for k in ("ring_y", "ring_u", "ring_v")]
             for s in range(RING):
                 self._native.set_ring(s, rings[0][s], rings[1][s],

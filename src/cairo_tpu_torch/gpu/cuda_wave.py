@@ -248,9 +248,10 @@ def _consts(device: str):
     """The transform and quantiser tables wave.cu reads: DCT basis, intra
     and inter matrices, luma and chroma DC scales for qp 0..31."""
     c = ops.consts(device)
-    return torch.cat([c["B"].reshape(-1), c["INTRA_QM"].reshape(-1),
-                      c["INTER_QM"].reshape(-1), c["LUMA_DC"][:32],
-                      c["CHROMA_DC"][:32]]).contiguous()
+    return ops.settled(device, torch.cat([
+        c["B"].reshape(-1), c["INTRA_QM"].reshape(-1),
+        c["INTER_QM"].reshape(-1), c["LUMA_DC"][:32],
+        c["CHROMA_DC"][:32]]).contiguous())
 
 
 def wave_pass(src, self_sad, inter_best, inter_pred, cur_y, cur_u, cur_v,

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from .ops import rounded_div_pos
+from .ops import rounded_div_pos, settled
 
 STEP = 8
 I32 = torch.int32
@@ -29,10 +29,11 @@ I32 = torch.int32
 
 @functools.lru_cache(maxsize=None)
 def _thresholds(device: str):
-    return (torch.as_tensor(tables.DEBLOCK_ALPHA.astype(np.int32),
-                            device=device),
-            torch.as_tensor(tables.DEBLOCK_BETA.astype(np.int32),
-                            device=device))
+    return settled(device, (
+        torch.as_tensor(tables.DEBLOCK_ALPHA.astype(np.int32),
+                        device=device),
+        torch.as_tensor(tables.DEBLOCK_BETA.astype(np.int32),
+                        device=device)))
 
 
 def _edge_maps(copy_blocks, q_blocks, cells_y, cells_x, mb_cells):

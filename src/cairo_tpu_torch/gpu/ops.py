@@ -27,16 +27,25 @@ MB = tables.MACROBLOCK_SIZE
 I32 = torch.int32
 
 
+def settled(device, made):
+    """`made`, once the current stream has written it. The cached device
+    constants are read by the compute streams of every encoder and decoder
+    (gpu/pipeline.py), which do not wait on the stream that made them."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return made
+
+
 @functools.lru_cache(maxsize=None)
 def _tables(device: str) -> dict:
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    return dict(
+    return settled(device, dict(
         B=t(tables.DCT_BASIS_8), INTRA_QM=t(tables.INTRA_QM_8x8),
         INTER_QM=t(tables.INTER_QM_8x8),
         LUMA_DC=t(tables.luma_dc_scale(np.arange(256))),
-        CHROMA_DC=t(tables.chroma_dc_scale(np.arange(256))))
+        CHROMA_DC=t(tables.chroma_dc_scale(np.arange(256)))))
 
 
 def consts(device) -> dict:

@@ -13,7 +13,7 @@ import torch
 
 from cairo_tpu_torch.gpu import (api, cuda_deblock, cuda_inter, cuda_motion,
                                  cuda_pred, cuda_wave, cuda_wavedec, deblock,
-                                 ops, wavefront)
+                                 ops, wavefront, wire)
 from cairo_tpu_torch.synth import synth_frames
 from util_deblock import KINDS, SIZES, TILE_SIZES, deblock_case
 
@@ -684,3 +684,144 @@ def test_deblock_frame_device_mismatch(dev):
     with pytest.raises(ValueError, match="u: expected a CUDA tensor"):
         cuda_deblock.deblock_frame(y.to(dev), u, v.to(dev), copy.to(dev),
                                    q.to(dev))
+
+
+# ------------------------------------------------------ pipelined paths
+
+def _cpu_reference(path, frames, quality):
+    """The loop on device="cpu": a path's chunks and their RGB."""
+    enc = (api.GpuEncoder if path == "fast" else api.ConformanceGpuEncoder)(
+        device="cpu")
+    enc.set_quality(quality)
+    chunks = [enc.encode(f) for f in frames]
+    dec = api.GpuDecoder(device="cpu")
+    return chunks, [dec.decode(c) for c in chunks]
+
+
+def _card_pipelined(path, frames, quality, dev):
+    enc = (api.GpuEncoder if path == "fast" else api.ConformanceGpuEncoder)(
+        device=dev)
+    enc.set_quality(quality)
+    chunks = list(enc.encode_many(frames))
+    dec = api.GpuDecoder(device=dev)
+    rgb = list(dec.decode_many(chunks))
+    assert dec.host_frames == 0
+    return chunks, rgb, enc, dec
+
+
+def _same(got, want):
+    assert got[0] == want[0]
+    assert len(got[1]) == len(want[1])
+    for i, (g, w) in enumerate(zip(got[1], want[1])):
+        np.testing.assert_array_equal(g, w, err_msg=f"frame {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fast", "conformance"])
+def test_pipelined_card_matches_cpu_loop(dev, path):
+    """encode_many and decode_many on the card (the conformance chunks
+    through the wavefront decode) against a loop on the CPU; the state
+    the encoder leaves behind too."""
+    frames = synth_frames(176, 144, 6, seed=12)
+    want = _cpu_reference(path, frames, 16)
+    chunks, rgb, enc, _ = _card_pipelined(path, frames, 16, dev)
+    _same((chunks, rgb), want)
+    loop = (api.GpuEncoder if path == "fast" else api.ConformanceGpuEncoder)(
+        device="cpu")
+    loop.set_quality(16)
+    for f in frames:
+        loop.encode(f)
+    (cm, ca), (lm, la) = enc.state_dict(), loop.state_dict()
+    assert cm == lm
+    for k in la:
+        np.testing.assert_array_equal(ca[k], la[k], err_msg=k)
+    if path == "fast":
+        np.testing.assert_array_equal(enc.peek_destination(), rgb[-1])
+
+
+@pytest.mark.cuda
+def test_pipelined_card_1080p(dev):
+    """The fast path at 1920x1080: encode_many and decode_many equal a loop
+    over encode and decode on the card."""
+    frames = synth_frames(1920, 1080, 4, seed=13)
+    chunks, rgb, _, _ = _card_pipelined("fast", frames, 16, dev)
+    enc, dec = api.GpuEncoder(device=dev), api.GpuDecoder(device=dev)
+    enc.set_quality(16)
+    want = [enc.encode(f) for f in frames]
+    _same((chunks, rgb), (want, [dec.decode(c) for c in want]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fast", "conformance"])
+@pytest.mark.parametrize("case", ["tail", "coo", "yuv8", "yuv5d"])
+def test_pipelined_card_cross_stream_reads(dev, monkeypatch, path, case):
+    """Capacities forced small, so that the workers read device memory
+    beyond the downloaded wire: the encode wire's COO tail ("tail"), the
+    exact coefficient planes and the decoder's dense steps ("coo"), and
+    the ring slot of a lossy YUV wire, 8-bit or 5-bit-delta. Equal to the
+    CPU loop under the same capacities."""
+    caps = dict(tail=dict(COO_SMALL=64), coo=dict(COO_K=256),
+                yuv8=dict(EXC_K=2), yuv5d=dict(DEXC_K=2))[case]
+    for name, cap in caps.items():
+        monkeypatch.setattr(wire, name, cap)
+    rng = np.random.default_rng(14)
+    frames = [rng.integers(0, 255, (64, 80, 3)).astype(np.uint8)
+              for _ in range(4)]
+    quality = 1 if case in ("tail", "coo") else 31
+    want = _cpu_reference(path, frames, quality)
+    got = _card_pipelined(path, frames, quality, dev)
+    _same(got[:2], want)
+
+
+def _sleeping(step, cycles=20_000_000):
+    """`step` behind some 10 ms of device sleep on the current stream."""
+    def run(*args, **kwargs):
+        torch.cuda._sleep(cycles)
+        return step(*args, **kwargs)
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fast", "conformance"])
+def test_pipelined_reads_wait_for_the_step(dev, monkeypatch, path):
+    """Every step queued behind a device sleep on the compute stream: a
+    worker read that did not wait on the frame's event would copy memory
+    the step has not written yet."""
+    for mod, name in ((api.engine, "encode_step"),
+                      (api.engine, "decode_step_coo"),
+                      (api.engine, "decode_step"),
+                      (api.wavefront, "conformance_encode_step"),
+                      (api.wavefront, "conformance_decode_step"),
+                      (api.wavefront, "conformance_decode_step_dense")):
+        monkeypatch.setattr(mod, name, _sleeping(getattr(mod, name)))
+    monkeypatch.setattr(wire, "COO_SMALL", 64)
+    frames = synth_frames(176, 144, 5, seed=15)
+    want = _cpu_reference(path, frames, 16)
+    _same(_card_pipelined(path, frames, 16, dev)[:2], want)
+
+
+@pytest.mark.cuda
+def test_two_pipelines_in_alternation(dev):
+    """Two conformance encoders and two decoders pipelining in turns: K6
+    and K7, persistent kernels that spin on flags, run from two compute
+    streams at once."""
+    frames = [synth_frames(176, 144, 5, seed=s) for s in (16, 17)]
+    want = [_cpu_reference("conformance", f, q)
+            for f, q in zip(frames, (8, 24))]
+    encs = [api.ConformanceGpuEncoder(device=dev) for _ in range(2)]
+    for enc, q in zip(encs, (8, 24)):
+        enc.set_quality(q)
+    gens = [enc.encode_many(f) for enc, f in zip(encs, frames)]
+    chunks = [[], []]
+    for _ in range(5):
+        for i in (0, 1):
+            chunks[i].append(next(gens[i]))
+    decs = [api.GpuDecoder(device=dev) for _ in range(2)]
+    gens = [d.decode_many(c) for d, c in zip(decs, chunks)]
+    rgb = [[], []]
+    for _ in range(5):
+        for i in (0, 1):
+            rgb[i].append(next(gens[i]))
+    for i in (0, 1):
+        _same((chunks[i], rgb[i]), want[i])
+        assert decs[i].host_frames == 0
