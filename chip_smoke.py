@@ -73,11 +73,25 @@ Phases, one line each with the elapsed seconds:
      loop's, no frame took the host decoder and every kernel of the path
      was launched in the pipelined run (its counts set to 0 just before
      it); prints both fps (as bench.py counts them: the yield intervals
-     of the measured frames) and the per-stage medians of each run.
+     of the measured frames) and the per-stage medians of each run;
+  8. tiled: TiledEncoder and TiledDecoder (gpu/tiled.py) over 1 intra + 4
+     inter 1920x1080 frames at q16 whose content moves 9 px a frame
+     across the tile edges, in four configurations: 1 tile (each slice
+     equals GpuEncoder's, the RGB GpuDecoder's); 4 tiles on one card
+     (decoded RGB equals recon_rgb(), some MB in a tile's first column
+     takes a vector into its left neighbour; a sixth frame traced for its
+     CUDA launches); 2 GOPs x 2 tiles (each GOP's stream equals that GOP
+     encoded alone); 352x288 over 4 tiles (the card's chunks equal the
+     CPU's); fails unless every comparison holds and K1-K4 and K8 were
+     launched in each configuration, K1-K4 with the ring halo; prints the
+     per-frame fps of tiled encode and decode at each tile count. Phase 2
+     also holds K1-K4 at a tile's halo'd shapes (1088 x (480 + 64) luma)
+     against their plain versions, margins zeroed and real.
 The line before the last is a JSON object with each kernel's launches (K4
 once per pad set; K7's in phase 5; K8's in phases 3 and 5 together, by
 path under launches_by_path; phase 7's pipelined runs under
-launches_pipelined), error, times and ptxas registers (K3's
+launches_pipelined; phase 8's under launches_tiled), error, times and
+ptxas registers (K3's
 are its three-plane launch's, with its luma and chroma calls alone under
 luma_* and chroma_*); the last line is the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -425,7 +439,79 @@ def phase_kernels(torch, np, gpu):
                             "pred_planes_kernel"),
         plain_ms=cuda_ms(torch, lambda: cp.pred_planes_plain(*args), 3),
         bytes=pred_planes_bytes(args, H, W), ops=0, max_abs_err=k4_err)
+    for k, err in phase_kernels_halo(torch, np, gpu, check).items():
+        recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], err)
     return recs
+
+
+def phase_kernels_halo(torch, np, gpu, check):
+    """K1-K4 at the shapes a quarter-1080p tile gives them (core 1088 x
+    480 luma; reference margin and ring halo shard.HALO = 32 luma, 16
+    chroma), margins zeroed and real (the frame-edge and interior tiles
+    of the tiled path); returns each kernel's largest error (0)."""
+    cm, cp, halo = gpu["cuda_motion"], gpu["cuda_pred"], gpu["shard"].HALO
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    H, W = 1088, 480
+    n = (H // 16) * (W // 16)
+
+    def plane(h, w, m, real, lo=-300, hi=560):
+        a = rng.integers(lo, hi, (h, w + 2 * m))
+        if not real:
+            a[:, :m] = 0
+            a[:, w + m:] = 0
+        return torch.as_tensor(a).to(dev, torch.int16)
+
+    src = [torch.as_tensor(rng.integers(0, 256, s)).to(dev, torch.int32)
+           for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    thr = torch.tensor(5, dtype=torch.int32, device=dev)
+    mx = torch.as_tensor(rng.integers(-16, 17, n)).to(dev, torch.int32)
+    my = torch.as_tensor(rng.integers(-16, 17, n)).to(dev, torch.int32)
+    mx[:32], my[32:64] = -40, 40
+    slot = torch.tensor([3], dtype=torch.int32, device=dev)
+    per_mb = (torch.as_tensor(rng.integers(0, 4, n)).to(dev, torch.int32),
+              mx, my,
+              torch.as_tensor(rng.random(n) < 0.5).to(dev),
+              torch.as_tensor(rng.random(n) < 0.5).to(dev),
+              torch.as_tensor(rng.integers(0, 8, n)).to(dev, torch.int32),
+              torch.as_tensor(rng.random(n) < 0.2).to(dev))
+    errs = dict(K1=0, K2=0, K3=0, K4=0)
+    for real in (True, False):
+        label = f"tile 1088x(480+64), {'real' if real else 'zeroed'} margin"
+        ry = plane(H, W, halo, real)
+        ru, rv = plane(H // 2, W // 2, halo // 2, real), \
+            plane(H // 2, W // 2, halo // 2, real)
+        cmax, e = check("K1 chroma_max_maps",
+                        lambda: cm.chroma_max_maps(src[1], src[2], ru, rv,
+                                                   halo // 2),
+                        lambda: cm.chroma_max_maps_plain(src[1], src[2], ru,
+                                                         rv, halo // 2),
+                        label)
+        errs["K1"] = max(errs["K1"], e)
+        for x0 in (0, 480, 1440):
+            _, e = check("K2 dense_select",
+                         lambda: cm.dense_select(src[0], ry, cmax, x0, 1920,
+                                                 1080, thr, halo),
+                         lambda: cm.dense_select_plain(src[0], ry, cmax, x0,
+                                                       1920, 1080, thr, halo),
+                         f"{label}, x0 {x0}")
+            errs["K2"] = max(errs["K2"], e)
+        ring = tuple(torch.stack([plane(h, w, m, real) for _ in range(4)])
+                     for h, w, m in ((H, W, halo), (H // 2, W // 2, halo // 2),
+                                     (H // 2, W // 2, halo // 2)))
+        _, e = check("K3 gather_windows_yuv",
+                     lambda: cp.gather_windows_yuv(ring, slot, mx, my, halo),
+                     lambda: cp.gather_windows_yuv_plain(ring, slot, mx, my,
+                                                         halo), label)
+        errs["K3"] = max(errs["K3"], e)
+        _, e = check("K4 pred_planes",
+                     lambda: cp.pred_planes(*ring, *per_mb, halo=halo),
+                     lambda: cp.pred_planes_plain(*ring, *per_mb, halo=halo),
+                     label)
+        errs["K4"] = max(errs["K4"], e)
+    log("K1-K4: equal to the plain versions at a tile's halo'd shapes "
+        "(1088 x (480 + 64) luma), margins real and zeroed")
+    return errs
 
 
 # integer operations of one evaluation of the deblock filter (one edge at
@@ -1135,6 +1221,203 @@ def phase_cpu_vs_card(gpu):
                  f"({len(a)} vs {len(b)} bytes)")
 
 
+def moving_frames(width, height, n, seed=3, shift=5):
+    """Textured frames whose content rolls `shift` px right a frame, with a
+    patch that changes in place (tests/test_tiled.py's content)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, (height, width, 3), np.uint8)
+    yy, xx = np.mgrid[0:height, 0:width]
+    base[..., 0] = (128 + 90 * np.sin(xx * 0.11) * np.cos(yy * 0.07)
+                    ).astype(np.uint8)
+    frames = []
+    for t in range(n):
+        f = np.roll(base, t * shift, axis=1).copy()
+        f[10:30, 10:40] = (20 * t) % 200
+        frames.append(np.ascontiguousarray(f))
+    return frames
+
+
+# the kernels of the tiled path, by LAUNCHES key: K1-K4 read the halo
+TILED_HALO_KERNELS = ("chroma_max_maps", "dense_select", "gather_windows",
+                      "pred_planes")
+
+
+def traced_kernels(torch, fn):
+    """(launches, device ms) of every CUDA kernel in a torch.profiler
+    trace of fn()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in events),
+            sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in events) / 1e3)
+
+
+def phase_tiled(torch, np, gpu, smi):
+    """Phase 8: the tiled path at 1080p on one card; returns (launches by
+    kernel over the phase, summary)."""
+    from cairo_tpu_torch.blocktypes import MOTION_BIT
+
+    tiled, api = gpu["tiled"], gpu["api"]
+    mods = (gpu["cuda_motion"], gpu["cuda_pred"], gpu["cuda_deblock"])
+    total = {}
+    summary = {}
+
+    def reset():
+        for mod in mods:
+            for counts in (mod.LAUNCHES, getattr(mod, "HALO_LAUNCHES", {})):
+                for k in counts:
+                    counts[k] = 0
+
+    def launched(label):
+        """Fails unless K1-K4 (with the halo) and K8 launched since reset();
+        adds the counts to the phase's."""
+        counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        halo = {k: v for mod in mods[:2]
+                for k, v in mod.HALO_LAUNCHES.items()}
+        for name in TILED_HALO_KERNELS + ("deblock_frame",):
+            if counts[name] == 0:
+                fail(f"phase 8 ({label}): {name} was never launched")
+        for name in TILED_HALO_KERNELS:
+            if halo[name] == 0:
+                fail(f"phase 8 ({label}): {name} never launched with the "
+                     f"ring halo")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return {k: counts[k] for k in TILED_HALO_KERNELS + ("deblock_frame",)}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def fps(seconds):
+        return len(seconds) / sum(seconds)
+
+    t_phase = time.perf_counter()
+    frames = moving_frames(1920, 1080, 6, shift=9)
+
+    # ---- 1 tile against the single-card path (run first, so that the
+    # counts hold the tiled path's launches only)
+    genc, gdec = api.GpuEncoder(), api.GpuDecoder()
+    genc.set_quality(16)
+    singles = [genc.encode(f) for f in frames[:5]]
+    single_rgb = [gdec.decode(c) for c in singles]
+    reset()
+    enc = tiled.TiledEncoder(n_tiles=1, devices=["cuda:0"])
+    dec = tiled.TiledDecoder(devices=["cuda:0"])
+    enc.set_quality(16)
+    enc_s, dec_s = [], []
+    for i, f in enumerate(frames[:5]):
+        chunk, s_enc = timed(lambda: enc.encode(f))
+        rgb, s_dec = timed(lambda: dec.decode(chunk))
+        enc_s.append(s_enc)
+        dec_s.append(s_dec)
+        off = tiled.parse_tiled_header(chunk)[3] if i == 0 else 0
+        if chunk[off + 10 + 4:] != singles[i][(14 if i == 0 else 0) + 10:]:
+            fail(f"phase 8: 1-tile slice of frame {i} differs from "
+                 f"GpuEncoder's")
+        if not np.array_equal(rgb, single_rgb[i]):
+            fail(f"phase 8: 1-tile RGB of frame {i} differs from GpuDecoder's")
+        if not np.array_equal(rgb, enc.recon_rgb()):
+            fail(f"phase 8: 1-tile RGB of frame {i} differs from recon_rgb()")
+    summary["1_tile"] = dict(
+        launches=launched("1 tile"), inter_encode_fps=fps(enc_s[1:]),
+        inter_decode_fps=fps(dec_s[1:]),
+        encode_ms=[round(x * 1e3, 1) for x in enc_s],
+        decode_ms=[round(x * 1e3, 1) for x in dec_s])
+
+    # ---- 4 tiles on one card, a sixth frame traced
+    reset()
+    enc = tiled.TiledEncoder(n_tiles=4, devices=["cuda:0"] * 4)
+    dec = tiled.TiledDecoder(devices=["cuda:0"] * 4)
+    enc.set_quality(16)
+    enc_s, dec_s = [], []
+    for i, f in enumerate(frames[:5]):
+        chunk, s_enc = timed(lambda: enc.encode(f))
+        rgb, s_dec = timed(lambda: dec.decode(chunk))
+        enc_s.append(s_enc)
+        dec_s.append(s_dec)
+        if not np.array_equal(rgb, enc.recon_rgb()):
+            fail(f"phase 8: 4-tile RGB of frame {i} differs from recon_rgb()")
+    reach = 0
+    for t in range(1, 4):
+        bt = dec._bt[t]
+        col0 = np.arange(len(bt)) % (dec.tile_w // 16) == 0
+        motion = (bt.block_type & MOTION_BIT).astype(bool)
+        reach += int(np.sum(motion & col0 & (bt.motion_x < 0)))
+    if reach == 0:
+        fail("phase 8: no MB of a tile's first column took a vector into "
+             "its left neighbour")
+    last = {}
+    traced, traced_ms = traced_kernels(torch, lambda: last.update(
+        rgb=dec.decode(enc.encode(frames[5]))))
+    if not np.array_equal(last["rgb"], enc.recon_rgb()):
+        fail("phase 8: 4-tile RGB of the traced frame differs from "
+             "recon_rgb()")
+    summary["4_tiles"] = dict(
+        launches=launched("4 tiles"), inter_encode_fps=fps(enc_s[1:]),
+        inter_decode_fps=fps(dec_s[1:]),
+        encode_ms=[round(x * 1e3, 1) for x in enc_s],
+        decode_ms=[round(x * 1e3, 1) for x in dec_s],
+        first_column_mbs_reaching_left=reach,
+        cuda_launches_traced_frame=traced,
+        kernel_ms_traced_frame=traced_ms,
+        # the traced frame's kernel time over an untraced inter frame's
+        # encode + decode wall time
+        busy_share=traced_ms / 1e3 / (np.mean(enc_s[1:])
+                                      + np.mean(dec_s[1:])))
+
+    # ---- 2 GOPs x 2 tiles against each GOP alone
+    reset()
+    seqs = [moving_frames(1920, 1080, 5, seed=1, shift=9),
+            moving_frames(1920, 1080, 5, seed=2, shift=7)]
+    enc = tiled.TiledEncoder(n_tiles=2, n_gops=2, devices=["cuda:0"] * 4)
+    enc.set_quality(16)
+    batched, enc_s = [], []
+    for a, b in zip(*seqs):
+        chunks, s_enc = timed(lambda: enc.encode_batch([a, b]))
+        batched.append(chunks)
+        enc_s.append(s_enc)
+    summary["2_gops_x_2_tiles"] = dict(
+        launches=launched("2 GOPs x 2 tiles"),
+        inter_batch_fps=fps(enc_s[1:]),
+        encode_ms=[round(x * 1e3, 1) for x in enc_s])
+    reset()
+    for g, seq in enumerate(seqs):
+        alone = tiled.TiledEncoder(n_tiles=2, devices=["cuda:0"] * 2)
+        alone.set_quality(16)
+        for i, f in enumerate(seq):
+            if alone.encode(f) != batched[i][g]:
+                fail(f"phase 8: GOP {g} frame {i} differs from the GOP "
+                     f"encoded alone")
+    launched("each GOP alone, 2 tiles")
+
+    # ---- 352x288 over 4 tiles: card against CPU
+    reset()
+    small = moving_frames(352, 288, 3, shift=9)
+    cpu = tiled.TiledEncoder(n_tiles=4, devices=["cpu"] * 4)
+    card = tiled.TiledEncoder(n_tiles=4, devices=["cuda:0"] * 4)
+    for e in (cpu, card):
+        e.set_quality(16)
+    for i, f in enumerate(small):
+        if cpu.encode(f) != card.encode(f):
+            fail(f"phase 8: 352x288 4-tile chunks of frame {i} differ "
+                 f"between the CPU and the card")
+    summary["352x288_4_tiles"] = dict(launches=launched("352x288, 4 tiles"))
+    summary["seconds"] = time.perf_counter() - t_phase
+    return total, summary
+
+
 # pipeline stages labelled in the --profile trace: (module, attribute)
 PROFILE_STAGES = (
     ("native", "rgb_to_yuv5d"), ("native", "encode_slice"),
@@ -1298,11 +1581,13 @@ def main():
 
     from cairo_tpu_torch.gpu import (_build, api, cuda_deblock, cuda_inter,
                                      cuda_motion, cuda_pred, cuda_wave,
-                                     cuda_wavedec, deblock, ops, wavefront)
+                                     cuda_wavedec, deblock, ops, shard,
+                                     tiled, wavefront)
     gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred,
                cuda_inter=cuda_inter, cuda_wave=cuda_wave,
                cuda_wavedec=cuda_wavedec, cuda_deblock=cuda_deblock,
-               deblock=deblock, ops=ops, wavefront=wavefront)
+               deblock=deblock, ops=ops, shard=shard, tiled=tiled,
+               wavefront=wavefront)
     secs = _build.build_all()
     log(f"phase 1: built kernels in {secs['kernels_s']:.1f}s and the native "
         f"library in {secs['native_s']:.1f}s")
@@ -1404,6 +1689,28 @@ def main():
 
     piped = phase_pipelined(gpu, smi)
 
+    tiled_launches, tsum = phase_tiled(torch, np, gpu, smi)
+    for label in ("1_tile", "4_tiles"):
+        r = tsum[label]
+        log(f"phase 8: 1920x1080 q16, {label.replace('_', ' ')} on one card: "
+            f"inter frames encode {r['inter_encode_fps']:.2f} fps, decode "
+            f"{r['inter_decode_fps']:.2f} fps; encode ms {r['encode_ms']}, "
+            f"decode ms {r['decode_ms']}; launches {r['launches']} on {smi}")
+    r = tsum["4_tiles"]
+    log(f"phase 8: 4 tiles: {r['cuda_launches_traced_frame']} CUDA launches "
+        f"and {r['kernel_ms_traced_frame']:.2f} ms of kernels in a traced "
+        f"inter frame (encode + decode), busy {100 * r['busy_share']:.1f} % "
+        f"of an untraced one's wall time; "
+        f"{r['first_column_mbs_reaching_left']} first-column MBs took a "
+        f"vector into the left neighbour")
+    r = tsum["2_gops_x_2_tiles"]
+    log(f"phase 8: 2 GOPs x 2 tiles: inter batches (one frame of each GOP) "
+        f"{r['inter_batch_fps']:.2f} per s; encode ms {r['encode_ms']}; each "
+        f"GOP's stream equals the GOP encoded alone")
+    log(f"phase 8: 352x288 over 4 tiles: card and CPU chunks byte-identical; "
+        f"phase seconds {tsum['seconds']:.1f} on {smi}")
+    print("tiled " + json.dumps(tsum), flush=True)
+
     meta = {
         "K1": ("chroma_max_maps", "src/cairo_tpu_torch/gpu/csrc/motion.cu",
                "src/cairo_tpu/tpu/pallas_motion.py:314"),
@@ -1442,6 +1749,7 @@ def main():
             launches=launches[name], launches_pipelined=sum(
                 piped[f"{path}_launches"].get(name, 0)
                 for path in PIPELINE_PATHS),
+            launches_tiled=tiled_launches.get(name, 0),
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",

@@ -8,6 +8,10 @@ Public surface:
   ConformanceGpuEncoder    -- the reference encoder's own bytes on the
                               card (wavefront schedule), identical to
                               ConformanceTpuEncoder's.
+  TiledEncoder / TiledDecoder -- frames split into tiles over a (gop,
+                              tile) mesh of devices (gpu/tiled.py,
+                              gpu/shard.py, gpu/cluster.py); streams are
+                              byte-identical to cairo_tpu's tiled ones.
   checkpoint / metrics     -- session save/resume, per-frame stats.
 
 Layout mirrors cairo_tpu: `gpu/` is the counterpart of `cairo_tpu/tpu/`,
@@ -21,11 +25,15 @@ from .blocktypes import BlockTable
 
 __version__ = "0.1.0"
 __all__ = ["GpuEncoder", "GpuDecoder", "ConformanceGpuEncoder",
-           "BlockTable", "checkpoint", "metrics", "tables"]
+           "TiledEncoder", "TiledDecoder", "BlockTable", "checkpoint",
+           "metrics", "tables"]
 
 
 def __getattr__(name):
     if name in ("GpuEncoder", "GpuDecoder", "ConformanceGpuEncoder"):
         from .gpu import api
         return getattr(api, name)
+    if name in ("TiledEncoder", "TiledDecoder"):
+        from .gpu import tiled
+        return getattr(tiled, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -70,8 +70,17 @@
 // minimum of the keys, unique by their scan index, with shuffles. K1's
 // 289 chroma maxima for the block's macroblocks are staged in shared
 // memory, and all staging loads are 16 bytes wide.
-// The reference is a plain ring plane of the source's shape; reads
-// outside it are zero, matching the anchor's zero padding.
+//
+// Both take the reference with a margin of its own: (H, W + 2 margin),
+// read at column x + margin for source column x; reads outside it are
+// zero, matching the anchor's zero padding. A single-card ring plane has
+// margin 0; a tile's ring plane (gpu/shard.py) carries its neighbours'
+// columns in a margin of 32 luma and 16 chroma columns, which the reach
+// (16 luma, 8 chroma) never leaves, so reading the wide plane in place
+// gives what the anchor's hmargin cut gives. A staged chunk starts at a
+// multiple of 8 reference columns as long as the margin is a multiple of
+// 8 (the wrappers check it), so it still lies wholly inside or outside
+// the plane.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,7 +129,7 @@ struct K1Smem {
 __global__ void __launch_bounds__(K1_THREADS, 2)
 chroma_max_kernel(const int* __restrict__ su, const int* __restrict__ sv,
                   const int16_t* __restrict__ ru,
-                  const int16_t* __restrict__ rv, int h, int w,
+                  const int16_t* __restrict__ rv, int h, int w, int margin,
                   int* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char k1_raw[];
   K1Smem& s = *reinterpret_cast<K1Smem*>(k1_raw);
@@ -133,6 +142,7 @@ chroma_max_kernel(const int* __restrict__ su, const int* __restrict__ sv,
   const int na = min(nb, wb - bj0);            // of them in row bi0
   const int nq0 = na + 2;                      // segment 0's 8-column chunks
   const int nq = nq0 + (nb > na ? nb - na + 2 : 0);
+  const int rw = w + 2 * margin;               // the reference's row pitch
 
   // ---- stage the reference strips (8-column chunks) and the lanes'
   // source blocks (4-column chunks) as floats
@@ -140,14 +150,15 @@ chroma_max_kernel(const int* __restrict__ su, const int* __restrict__ sv,
     const int r = i / nq, q = i % nq;
     const bool seg1 = q >= nq0;
     const int y = CB * (bi0 + seg1) - CR + r;
-    const int x = seg1 ? CB * (q - nq0) - CR : CB * (bj0 + q) - CR;
+    const int x =
+        (seg1 ? CB * (q - nq0) - CR : CB * (bj0 + q) - CR) + margin;
     union {
       int4 v;
       int16_t e[8];
     } cu, cv;
     cu.v = cv.v = make_int4(0, 0, 0, 0);
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      const size_t o = static_cast<size_t>(y) * w + x;
+    if (y >= 0 && y < h && x >= 0 && x < rw) {
+      const size_t o = static_cast<size_t>(y) * rw + x;
       cu.v = *reinterpret_cast<const int4*>(ru + o);
       cv.v = *reinterpret_cast<const int4*>(rv + o);
     }
@@ -234,7 +245,7 @@ dense_select_kernel(const int* __restrict__ src,
                     const int16_t* __restrict__ ref,
                     const int* __restrict__ cmax,
                     const int* __restrict__ mad_thr_p, int h, int w,
-                    int x0, int width, int height,
+                    int margin, int x0, int width, int height,
                     int* __restrict__ mx_o, int* __restrict__ my_o,
                     int* __restrict__ sad_o, int* __restrict__ mad_o,
                     uint8_t* __restrict__ frozen_o) {
@@ -249,11 +260,13 @@ dense_select_kernel(const int* __restrict__ src,
   const int t = threadIdx.x;
   const int wb = w / MB, nmb = (h / MB) * wb;
   const int n0 = blockIdx.x * K2_MBS;
+  const int rw = w + 2 * margin;   // the reference's row pitch
 
   // ---- stage the blocks' sources and windows as floats (exact: every
   // value is an integer in int16 range), 16 bytes a load: a source row is
-  // 4 loads, a window row 6 (px - 16 is a multiple of 16 and the width a
-  // multiple of 16, so a chunk lies wholly inside or outside the plane)
+  // 4 loads, a window row 6 (px - 16 + margin is a multiple of 8 and the
+  // reference's width a multiple of 8, so a chunk lies wholly inside or
+  // outside the plane)
   for (int i = t; i < K2_MBS * CNOFF; i += K2_THREADS) {
     const int n = n0 + i / CNOFF;
     s_cm[i / CNOFF][i % CNOFF] =
@@ -275,14 +288,15 @@ dense_select_kernel(const int* __restrict__ src,
   for (int i = t; i < K2_MBS * YWIN * 6; i += K2_THREADS) {
     const int b = i / (YWIN * 6), r = (i / 6) % YWIN, q = i % 6;
     const int n = n0 + b;
-    const int y = (n / wb) * MB - R + r, x = (n % wb) * MB - R + 8 * q;
+    const int y = (n / wb) * MB - R + r;
+    const int x = (n % wb) * MB - R + 8 * q + margin;
     union {
       int4 v;
       int16_t e[8];
     } c;
     c.v = make_int4(0, 0, 0, 0);
-    if (n < nmb && y >= 0 && y < h && x >= 0 && x < w)
-      c.v = *reinterpret_cast<const int4*>(ref + static_cast<size_t>(y) * w +
+    if (n < nmb && y >= 0 && y < h && x >= 0 && x < rw)
+      c.v = *reinterpret_cast<const int4*>(ref + static_cast<size_t>(y) * rw +
                                            x);
     float* d = &s_ref[b][r * K2_RS + 8 * q];
 #pragma unroll
@@ -434,7 +448,8 @@ dense_select_kernel(const int* __restrict__ src,
 
 extern "C" int cairo_chroma_max_maps(const void* su, const void* sv,
                                      const void* ru, const void* rv, int h,
-                                     int w, void* out, void* stream) {
+                                     int w, int margin, void* out,
+                                     void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       chroma_max_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(sizeof(K1Smem)));
@@ -445,13 +460,14 @@ extern "C" int cairo_chroma_max_maps(const void* su, const void* sv,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(su), static_cast<const int*>(sv),
       static_cast<const int16_t*>(ru), static_cast<const int16_t*>(rv), h, w,
-      static_cast<int*>(out));
+      margin, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int cairo_dense_select(const void* src, const void* ref,
                                   const void* cmax, const void* mad_thr,
-                                  int h, int w, int x0, int width,
+                                  int h, int w, int margin, int x0,
+                                  int width,
                                   int height, void* mx, void* my,
                                   void* sad, void* mad, void* frozen,
                                   void* stream) {
@@ -460,7 +476,7 @@ extern "C" int cairo_dense_select(const void* src, const void* ref,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(src), static_cast<const int16_t*>(ref),
       static_cast<const int*>(cmax), static_cast<const int*>(mad_thr), h, w,
-      x0, width, height, static_cast<int*>(mx),
+      margin, x0, width, height, static_cast<int*>(mx),
       static_cast<int*>(my), static_cast<int*>(sad), static_cast<int*>(mad),
       static_cast<uint8_t*>(frozen));
   return static_cast<int>(cudaGetLastError());

@@ -22,6 +22,14 @@
 // 33/17, the reference's +-31 full-pel reach plus 1 sub-pel
 // (wavefront.py:733-780). One launch covers the Y, U and V planes.
 //
+// The three-plane K3 launch and K4 read a ring with a halo: (RING, H,
+// W + 2 halo) luma and (RING, H/2, W/2 + halo) chroma, where the windows
+// and prediction planes are those of the (H, W) core, whose column x is
+// ring column x + halo (x + halo/2 in chroma), as extract.mb_windows(
+// prepad_x=halo) cuts them. A single-card ring has halo 0; a tile's ring
+// (gpu/shard.py) carries its neighbours' deblocked columns there, 32
+// luma and 16 chroma. Reads outside the ring plane are zero, as before.
+//
 // What bounds both on this card is bytes: at 1080p a three-plane K3
 // launch reads the slot's planes (6.3 MB) and the offsets once and writes
 // 17.1 MB of windows, 23.4 MB in all, 7.0 us at 3.35 TB/s; a K4 call
@@ -80,10 +88,11 @@ __device__ __forceinline__ int pix32(const int16_t* p, int h, int w, int y,
              : 0;
 }
 
-// a ring stack (RING, h, w) int16 and its (n, B, B) int32 windows
+// a ring stack (RING, h, w) int16 and its (n, B, B) int32 windows; core
+// column x is ring column x + x_off
 struct WinPlane {
   const int16_t* ring;
-  int h, w;
+  int h, w, x_off;
   int* out;
 };
 
@@ -104,7 +113,7 @@ __device__ __forceinline__ void window_group(const WinPlane& p, int slot,
   const int ox = clampi((__ldg(mx + n) >> SHIFT) + PAD - 1, 0, 2 * PAD - 2);
   const int oy = clampi((__ldg(my + n) >> SHIFT) + PAD - 1, 0, 2 * PAD - 2);
   const int y0 = mb_row * (B - 2) - PAD + oy;
-  const int x0 = (n - mb_row * wb) * (B - 2) - PAD + ox;
+  const int x0 = (n - mb_row * wb) * (B - 2) - PAD + ox + p.x_off;
   const int16_t* plane = p.ring + static_cast<size_t>(slot) * p.h * p.w;
   int r = f / B, c = f - r * B;
   int v[4];
@@ -155,10 +164,11 @@ gather_windows_kernel(WinPlane a, WinPlane b, WinPlane c,
 
 // ---- K4
 
-// a ring stack (RING, h, w) int16 and its (h, w) int32 prediction plane
+// a ring stack (RING, h, rw) int16 and its (h, w) int32 prediction
+// plane; core column x is ring column x + x_off
 struct PredPlane {
   const int16_t* ring;
-  int h, w;
+  int h, w, rw, x_off;
   int* out;
 };
 
@@ -177,7 +187,9 @@ struct PredFields {
 // samples x .. x + 3 of row y of a plane, zero outside it, from two
 // aligned 8-byte loads and a funnel shift. The plane's width is a
 // multiple of 4 and its rows start 8-byte aligned, so each aligned word
-// of 4 samples lies wholly inside or wholly outside the plane.
+// of 4 samples lies wholly inside or wholly outside the plane. A ring
+// halo keeps this: its width (W + 2 halo, W/2 + halo) is a multiple of 4
+// when halo is a multiple of 8, which the wrappers check.
 __device__ __forceinline__ void row4(const int16_t* plane, int h, int w,
                                      int y, int x, int (&v)[4]) {
   const int xa = x & ~3;   // the aligned word at or left of x
@@ -220,22 +232,23 @@ __device__ __forceinline__ void pred_group(const PredPlane& p,
     *dst = make_int4(0, 0, 0, 0);
     return;
   }
-  const int16_t* plane = p.ring + static_cast<size_t>(s) * p.h * p.w;
+  const int16_t* plane = p.ring + static_cast<size_t>(s) * p.h * p.rw;
   const int m_x = __ldg(f.mx + n), m_y = __ldg(f.my + n);
+  const int xr = x + p.x_off;   // the group's ring column
   const int yb = y - PAD + clampi((m_y >> SHIFT) + PAD, 0, 2 * PAD);
-  const int xb = x - PAD + clampi((m_x >> SHIFT) + PAD, 0, 2 * PAD);
+  const int xb = xr - PAD + clampi((m_x >> SHIFT) + PAD, 0, 2 * PAD);
   int v[4];
-  row4(plane, p.h, p.w, yb, xb, v);
+  row4(plane, p.h, p.rw, yb, xb, v);
   if (__ldg(f.spp + n)) {
     // the neighbour's chroma shift depends on the parity of mx, my
     const int d = clampi(__ldg(f.spi + n), 0, 7);
     const int yn =
         y - PAD + clampi(((m_y + dir_y(d)) >> SHIFT) + PAD, 0, 2 * PAD);
     const int xn =
-        x - PAD + clampi(((m_x + dir_x(d)) >> SHIFT) + PAD, 0, 2 * PAD);
+        xr - PAD + clampi(((m_x + dir_x(d)) >> SHIFT) + PAD, 0, 2 * PAD);
     const bool quarter = __ldg(f.spa + n) != 0;
     int nb[4];
-    row4(plane, p.h, p.w, yn, xn, nb);
+    row4(plane, p.h, p.rw, yn, xn, nb);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       v[j] = quarter ? lerp_quarter(v[j], nb[j]) : lerp_half(v[j], nb[j]);
@@ -273,7 +286,7 @@ extern "C" int cairo_gather_windows(const void* planes, const void* slot,
                                     int w, int block, int pad, void* out,
                                     void* stream) {
   const int wb = w / (block - 2), n = (h / (block - 2)) * wb;
-  const WinPlane p{static_cast<const int16_t*>(planes), h, w,
+  const WinPlane p{static_cast<const int16_t*>(planes), h, w, 0,
                    static_cast<int*>(out)};
   const int grid = blocks_for(n * (block * block / 4));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -292,10 +305,12 @@ extern "C" int cairo_gather_windows(const void* planes, const void* slot,
   return static_cast<int>(cudaGetLastError());
 }
 
+// h, w: the core's luma dims; the ring's are (h, w + 2 halo) and
+// (h / 2, w / 2 + halo)
 extern "C" int cairo_gather_windows_yuv(const void* ry, const void* ru,
                                         const void* rv, const void* slot,
                                         const void* mx, const void* my,
-                                        int h, int w, void* out_y,
+                                        int h, int w, int halo, void* out_y,
                                         void* out_u, void* out_v,
                                         void* stream) {
   const int wb = w / cairo::MB, n = (h / cairo::MB) * wb;
@@ -303,33 +318,35 @@ extern "C" int cairo_gather_windows_yuv(const void* ry, const void* ru,
   const int c_blocks = blocks_for(n * (C_WIN * C_WIN / 4));
   gather_windows_kernel<YUV><<<y_blocks + 2 * c_blocks, THREADS, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      WinPlane{static_cast<const int16_t*>(ry), h, w,
+      WinPlane{static_cast<const int16_t*>(ry), h, w + 2 * halo, halo,
                static_cast<int*>(out_y)},
-      WinPlane{static_cast<const int16_t*>(ru), h / 2, w / 2,
-               static_cast<int*>(out_u)},
-      WinPlane{static_cast<const int16_t*>(rv), h / 2, w / 2,
-               static_cast<int*>(out_v)},
+      WinPlane{static_cast<const int16_t*>(ru), h / 2, w / 2 + halo,
+               halo / 2, static_cast<int*>(out_u)},
+      WinPlane{static_cast<const int16_t*>(rv), h / 2, w / 2 + halo,
+               halo / 2, static_cast<int*>(out_v)},
       static_cast<const int*>(slot), static_cast<const int*>(mx),
       static_cast<const int*>(my), wb, n, y_blocks, c_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
+// h, w: the core's luma dims, as in cairo_gather_windows_yuv
 extern "C" int cairo_pred_planes(const void* ry, const void* ru,
                                  const void* rv, const void* slot,
                                  const void* mx, const void* my,
                                  const void* spp, const void* spa,
                                  const void* spi, const void* zero, int h,
-                                 int w, int ypad, int cpad, void* out_y,
-                                 void* out_u, void* out_v, void* stream) {
+                                 int w, int halo, int ypad, int cpad,
+                                 void* out_y, void* out_u, void* out_v,
+                                 void* stream) {
   const int wb = w / cairo::MB, n = (h / cairo::MB) * wb;
   const int y_blocks = blocks_for(n * cairo::MB * cairo::MB / 4);
   const int c_blocks = blocks_for(n * cairo::MB * cairo::MB / 16);
-  const PredPlane py{static_cast<const int16_t*>(ry), h, w,
-                     static_cast<int*>(out_y)};
+  const PredPlane py{static_cast<const int16_t*>(ry), h, w, w + 2 * halo,
+                     halo, static_cast<int*>(out_y)};
   const PredPlane pu{static_cast<const int16_t*>(ru), h / 2, w / 2,
-                     static_cast<int*>(out_u)};
+                     w / 2 + halo, halo / 2, static_cast<int*>(out_u)};
   const PredPlane pv{static_cast<const int16_t*>(rv), h / 2, w / 2,
-                     static_cast<int*>(out_v)};
+                     w / 2 + halo, halo / 2, static_cast<int*>(out_v)};
   const PredFields f{static_cast<const int*>(slot),
                      static_cast<const int*>(mx),
                      static_cast<const int*>(my),

@@ -13,8 +13,17 @@ adds one to LAUNCHES[name].
     motion._dense_select (motion.py:269).
 
 The port's chroma-map layout is (hb, wb, 17*17), offset index
-(cdy+8)*17 + (cdx+8): only K2 reads it. References are plain ring planes
-of the source's shape; reads beyond them are zero.
+(cdy+8)*17 + (cdx+8): only K2 reads it. A reference carries a margin of
+its own, `margin` columns each side ((H, W + 2 margin), 0 for a
+single-card ring plane, a tile's halo for a tiled one): source column x
+reads reference column x + margin, and reads beyond the reference are
+zero. The plain versions cut or zero-pad that margin to the search reach,
+as motion.inter_search's hmargin does (motion.py:415-421); K1 and K2 read
+the wide plane in place, which gives the same values because the reach
+(8 chroma, 16 luma columns) stays inside a margin at least that wide.
+
+Every launch with a margin also adds one to HALO_LAUNCHES[name], so a
+run can show that the tiled path reached the kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ INT32_MAX = 0x7FFFFFFF
 _NONE = torch.iinfo(torch.int64).max
 
 LAUNCHES = {"chroma_max_maps": 0, "dense_select": 0}
+HALO_LAUNCHES = {"chroma_max_maps": 0, "dense_select": 0}
 
 
 def _shifted(slab, n, width):
@@ -45,13 +55,31 @@ def _shifted(slab, n, width):
     return torch.stack([slab[:, d:d + width] for d in range(n)])
 
 
+def hmargin(plane, margin, reach):
+    """(H, W + 2 margin) -> (H, W + 2 reach): the plane's own margin cut
+    or zero-padded to `reach` columns each side (motion.py:415-421)."""
+    if margin >= reach:
+        return plane[:, margin - reach:plane.shape[1] - (margin - reach)]
+    return F.pad(plane, (reach - margin, reach - margin))
+
+
+def _check_margin(ref, name, dtype, h, w, margin):
+    """A reference as K1 and K2 take it: (h, w + 2 margin), the margin a
+    multiple of 8, so that a 16-byte staged chunk starts at a multiple of
+    8 reference columns and lies wholly inside or outside the plane."""
+    if margin < 0 or margin % 8:
+        raise ValueError(f"{name}: the reference margin must be a "
+                         f"non-negative multiple of 8, got {margin}")
+    _build.check(ref, name, dtype, (h, w + 2 * margin))
+
+
 # ----------------------------------------------------------------- K1
 
-def chroma_max_maps_plain(src_u, src_v, ref_u, ref_v):
+def chroma_max_maps_plain(src_u, src_v, ref_u, ref_v, margin=0):
     h, w = src_u.shape
     hb, wb = h // 8, w // 8
-    pu = F.pad(ref_u.to(torch.int16).to(I32), (CR, CR, CR, CR))
-    pv = F.pad(ref_v.to(torch.int16).to(I32), (CR, CR, CR, CR))
+    pu, pv = (F.pad(hmargin(r.to(torch.int16).to(I32), margin, CR),
+                    (0, 0, CR, CR)) for r in (ref_u, ref_v))
     su, sv = src_u.to(I32), src_v.to(I32)
     rows = []
     for dy in range(CSPAN):
@@ -63,36 +91,41 @@ def chroma_max_maps_plain(src_u, src_v, ref_u, ref_v):
     return maps.permute(2, 3, 0, 1).reshape(hb, wb, CNOFF).contiguous()
 
 
-def chroma_max_maps(src_u, src_v, ref_u, ref_v):
+def chroma_max_maps(src_u, src_v, ref_u, ref_v, margin=0):
     """(hb, wb, 289) int32 chroma abs-max maps over offsets [-8, 8]^2.
     src_*: (H, W) int32 chroma planes with values in int16 range (source
     planes are 0..255; the kernel's float arithmetic is exact there);
-    ref_*: (H, W) int16."""
+    ref_*: (H, W + 2 margin) int16, source column x at x + margin."""
     if src_u.device.type == "cpu":
-        return chroma_max_maps_plain(src_u, src_v, ref_u, ref_v)
+        return chroma_max_maps_plain(src_u, src_v, ref_u, ref_v, margin)
     h, w = src_u.shape
     if h % 8 or w % 8:
         raise ValueError("chroma_max_maps: plane dims must be multiples of 8")
     for t, name in ((src_u, "src_u"), (src_v, "src_v")):
         _build.check(t, name, I32, (h, w))
     for t, name in ((ref_u, "ref_u"), (ref_v, "ref_v")):
-        _build.check(t, name, torch.int16, (h, w))
+        _check_margin(t, name, torch.int16, h, w, margin)
     out = torch.empty((h // 8, w // 8, CNOFF), dtype=I32,
                       device=src_u.device)
-    fn = _build.kernel_fn("cairo_chroma_max_maps", "ppppiipp")
+    fn = _build.kernel_fn("cairo_chroma_max_maps", "ppppiiipp")
     _build.launch(fn, src_u.device, src_u.data_ptr(), src_v.data_ptr(),
-                  ref_u.data_ptr(), ref_v.data_ptr(), h, w, out.data_ptr())
+                  ref_u.data_ptr(), ref_v.data_ptr(), h, w, margin,
+                  out.data_ptr())
     LAUNCHES["chroma_max_maps"] += 1
+    if margin:
+        HALO_LAUNCHES["chroma_max_maps"] += 1
     return out
 
 
 # ----------------------------------------------------------------- K2
 
-def dense_select_plain(src_y, ref_y, cmax, x0, width, height, mad_thr):
+def dense_select_plain(src_y, ref_y, cmax, x0, width, height, mad_thr,
+                       margin=0):
     h, w = src_y.shape
     hb, wb = h // MB, w // MB
     dev = src_y.device
-    padded = F.pad(ref_y.to(torch.int16).to(I32), (R, R, R, R))
+    padded = F.pad(hmargin(ref_y.to(torch.int16).to(I32), margin, R),
+                   (0, 0, R, R))
     src = src_y.to(I32)
     thr = torch.as_tensor(mad_thr, dtype=I32, device=dev)
     px = torch.arange(wb, device=dev) * MB
@@ -149,16 +182,17 @@ def dense_select_plain(src_y, ref_y, cmax, x0, width, height, mad_thr):
     return mx, my, sad, mad, frozen
 
 
-def dense_select(src_y, ref_y, cmax, x0, width, height, mad_thr):
+def dense_select(src_y, ref_y, cmax, x0, width, height, mad_thr,
+                 margin=0):
     """Per-MB (mx, my, sad, mad, frozen) under the fast-mode policy.
     src_y: (H, W) int32 with values in int16 range (source planes are
-    0..255; the kernel's float arithmetic is exact there); ref_y: (H, W)
-    int16; cmax from
+    0..255; the kernel's float arithmetic is exact there); ref_y:
+    (H, W + 2 margin) int16, source column x at x + margin; cmax from
     chroma_max_maps; x0: the tile's pixel origin; width/height: the frame
     the candidates must stay in; mad_thr: int32 scalar tensor."""
     if src_y.device.type == "cpu":
         return dense_select_plain(src_y, ref_y, cmax, x0, width, height,
-                                  mad_thr)
+                                  mad_thr, margin)
     h, w = src_y.shape
     if h % MB or w % MB:
         raise ValueError("dense_select: plane dims must be multiples of 16")
@@ -166,17 +200,19 @@ def dense_select(src_y, ref_y, cmax, x0, width, height, mad_thr):
     dev = src_y.device
     thr = torch.as_tensor(mad_thr, dtype=I32, device=dev).reshape(1)
     _build.check(src_y, "src_y", I32, (h, w))
-    _build.check(ref_y, "ref_y", torch.int16, (h, w))
+    _check_margin(ref_y, "ref_y", torch.int16, h, w, margin)
     _build.check(cmax, "cmax", I32, (hb, wb, CNOFF))
     _build.check(thr, "mad_thr", I32, (1,))
     n = hb * wb
     mx, my, sad, mad = torch.empty((4, n), dtype=I32, device=dev).unbind(0)
     frozen = torch.empty(n, dtype=torch.bool, device=dev)
-    fn = _build.kernel_fn("cairo_dense_select", "ppppiiiiipppppp")
+    fn = _build.kernel_fn("cairo_dense_select", "ppppiiiiiipppppp")
     _build.launch(fn, dev, src_y.data_ptr(), ref_y.data_ptr(),
-                  cmax.data_ptr(), thr.data_ptr(), h, w, int(x0),
+                  cmax.data_ptr(), thr.data_ptr(), h, w, margin, int(x0),
                   int(width), int(height), mx.data_ptr(),
                   my.data_ptr(), sad.data_ptr(), mad.data_ptr(),
                   frozen.data_ptr())
     LAUNCHES["dense_select"] += 1
+    if margin:
+        HALO_LAUNCHES["dense_select"] += 1
     return mx, my, sad, mad, frozen

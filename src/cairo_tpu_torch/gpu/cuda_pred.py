@@ -16,6 +16,15 @@ adds one to LAUNCHES[name].
     with motion.pred_block_from_windows (motion.py:374) at the fast-mode
     pads 17/9, and the XLA branch of wavefront._wide_gather_pred
     (wavefront.py:737-780) at the conformance pads 33/17.
+
+gather_windows_yuv and pred_planes take a ring with a halo: (RING, H,
+W + 2 halo) luma and (RING, H/2, W/2 + halo) chroma stacks whose core
+column x lies at x + halo (x + halo/2 in chroma). Their windows and
+planes are the (H, W) core's, as extract.mb_windows(prepad_x=halo) cuts
+them (tpu/motion.py:366-371, the tiled path's windows). halo is 0 on a
+single card and shard.HALO (32) on a tile's ring. Every launch with a
+halo also adds one to HALO_LAUNCHES[name]. The single-plane
+gather_windows takes no halo.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ DIRS = ((-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0), (-1, 1), (0, 1), (1, 1))
 # pred_planes counts its launches at the fast-mode pads and at the wide
 # pads apart, so a run shows which of the two paths it took
 LAUNCHES = {"gather_windows": 0, "pred_planes": 0, "pred_planes_wide": 0}
+HALO_LAUNCHES = {"gather_windows": 0, "pred_planes": 0,
+                 "pred_planes_wide": 0}
 
 
 # the geometries the kernels are built for: K3's (block, pad), luma then
@@ -64,6 +75,20 @@ def _check_ring(t, name, shape):
         raise ValueError(f"{name}: expected an 8-byte aligned tensor")
 
 
+def _check_halo(halo, name):
+    """A ring halo the kernels take: a non-negative multiple of 8, so
+    that the chroma rows (W/2 + halo samples) stay whole 4-sample words
+    that start 8-byte aligned (K4's row loads)."""
+    if halo < 0 or halo % 8:
+        raise ValueError(f"{name}: the ring halo must be a non-negative "
+                         f"multiple of 8, got {halo}")
+
+
+def _ring_core(ring_y, halo):
+    """The core (H, W) of a luma ring stack (RING, H, W + 2 halo)."""
+    return ring_y.shape[1], ring_y.shape[2] - 2 * halo
+
+
 def _field(t, name, n, kinds):
     """A per-MB field as the kernel takes it: as it comes when its type is
     one of `kinds`, else converted to the first."""
@@ -75,9 +100,9 @@ def _field(t, name, n, kinds):
 
 # ----------------------------------------------------------------- K3
 
-def gather_windows_plain(planes, slot, mx, my, block, pad):
+def gather_windows_plain(planes, slot, mx, my, block, pad, halo=0):
     plane = planes.index_select(0, _slot_index(slot, planes.device))[0]
-    wins = extract.mb_windows(plane.to(I32), block - 2, pad)
+    wins = extract.mb_windows(plane.to(I32), block - 2, pad, prepad_x=halo)
     return extract.extract_blocks(wins, mx + pad - 1, my + pad - 1, block)
 
 
@@ -112,42 +137,48 @@ def gather_windows(planes, slot, mx, my, block, pad):
     return out
 
 
-def gather_windows_yuv_plain(ring, slot, mx, my):
+def gather_windows_yuv_plain(ring, slot, mx, my, halo=0):
     (yb, yp), (cb, cp) = WINDOWS
-    return (gather_windows_plain(ring[0], slot, mx, my, yb, yp),
-            gather_windows_plain(ring[1], slot, mx >> 1, my >> 1, cb, cp),
-            gather_windows_plain(ring[2], slot, mx >> 1, my >> 1, cb, cp))
+    return (gather_windows_plain(ring[0], slot, mx, my, yb, yp, halo),
+            gather_windows_plain(ring[1], slot, mx >> 1, my >> 1, cb, cp,
+                                 halo // 2),
+            gather_windows_plain(ring[2], slot, mx >> 1, my >> 1, cb, cp,
+                                 halo // 2))
 
 
-def gather_windows_yuv(ring, slot, mx, my):
+def gather_windows_yuv(ring, slot, mx, my, halo=0):
     """The sub-pel windows of one reference in all three planes, one
     launch: gather_windows over ring_y at 18/17 and over ring_u, ring_v
     at 10/9 with offsets (mx >> 1, my >> 1). ring: (ring_y, ring_u,
-    ring_v) int16 stacks; returns ((N, 18, 18), (N, 10, 10), (N, 10, 10))
-    int32, views of one buffer."""
+    ring_v) int16 stacks with a ring halo of `halo` luma columns;
+    returns ((N, 18, 18), (N, 10, 10), (N, 10, 10)) int32 windows of the
+    core, views of one buffer."""
     if ring[0].device.type == "cpu":
-        return gather_windows_yuv_plain(ring, slot, mx, my)
-    _, h, w = ring[0].shape
+        return gather_windows_yuv_plain(ring, slot, mx, my, halo)
+    _check_halo(halo, "gather_windows_yuv")
+    h, w = _ring_core(ring[0], halo)
     if h % MB or w % MB:
         raise ValueError("gather_windows_yuv: plane dims must be multiples "
                          "of 16")
     n = (h // MB) * (w // MB)
     dev = ring[0].device
     slot_t = _slot_index(slot, dev)
-    _check_ring(ring[0], "ring_y", (RING, h, w))
-    _check_ring(ring[1], "ring_u", (RING, h // 2, w // 2))
-    _check_ring(ring[2], "ring_v", (RING, h // 2, w // 2))
+    _check_ring(ring[0], "ring_y", (RING, h, w + 2 * halo))
+    _check_ring(ring[1], "ring_u", (RING, h // 2, w // 2 + halo))
+    _check_ring(ring[2], "ring_v", (RING, h // 2, w // 2 + halo))
     _build.check(slot_t, "slot", I32, (1,))
     _build.check(mx, "mx", I32, (n,))
     _build.check(my, "my", I32, (n,))
     (yb, _), (cb, _) = WINDOWS
     buf = torch.empty(n * (yb * yb + 2 * cb * cb), dtype=I32, device=dev)
     wy, wu, wv = buf.split([n * yb * yb, n * cb * cb, n * cb * cb])
-    fn = _build.kernel_fn("cairo_gather_windows_yuv", "ppppppiipppp")
+    fn = _build.kernel_fn("cairo_gather_windows_yuv", "ppppppiiipppp")
     _build.launch(fn, dev, *(r.data_ptr() for r in ring), slot_t.data_ptr(),
-                  mx.data_ptr(), my.data_ptr(), h, w, wy.data_ptr(),
+                  mx.data_ptr(), my.data_ptr(), h, w, halo, wy.data_ptr(),
                   wu.data_ptr(), wv.data_ptr())
     LAUNCHES["gather_windows"] += 1
+    if halo:
+        HALO_LAUNCHES["gather_windows"] += 1
     return (wy.view(n, yb, yb), wu.view(n, cb, cb), wv.view(n, cb, cb))
 
 
@@ -182,20 +213,22 @@ def pred_block_from_windows(wins, mx, my, sp_pred, sp_amount, sp_index,
 
 
 def pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my, sp_pred,
-                      sp_amount, sp_index, zero, ypad=Y_PAD, cpad=C_PAD):
-    height, width = ring_y.shape[1:]
+                      sp_amount, sp_index, zero, ypad=Y_PAD, cpad=C_PAD,
+                      halo=0):
+    height, width = _ring_core(ring_y, halo)
     slot = slot.to(I32)
 
-    def pick(stack, block, pad):
+    def pick(stack, block, pad, prepad):
         sel = None
         for s in range(RING):
-            win = extract.mb_windows(stack[s].to(I32), block, pad)
+            win = extract.mb_windows(stack[s].to(I32), block, pad, prepad)
             m = (slot == s)[:, None, None]
             sel = torch.where(m, win, 0 if sel is None else sel)
         return sel
 
-    wins = (pick(ring_y, MB, ypad), pick(ring_u, MB // 2, cpad),
-            pick(ring_v, MB // 2, cpad))
+    wins = (pick(ring_y, MB, ypad, halo), pick(ring_u, MB // 2, cpad,
+                                               halo // 2),
+            pick(ring_v, MB // 2, cpad, halo // 2))
     pred = pred_block_from_windows(wins, mx.to(I32), my.to(I32), sp_pred,
                                    sp_amount, sp_index, ypad, cpad)
     zm = zero.bool()[:, None, None]
@@ -206,9 +239,10 @@ def pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my, sp_pred,
 
 
 def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
-                sp_index, zero, ypad=Y_PAD, cpad=C_PAD):
-    """Prediction planes (pred_y, pred_u, pred_v), int32, of the ring plane
-    shapes. ring_*: (RING, H, W) int16; slot/mx/my/sp_index: (N,) int;
+                sp_index, zero, ypad=Y_PAD, cpad=C_PAD, halo=0):
+    """Prediction planes (pred_y, pred_u, pred_v), int32, of the ring's
+    core shapes. ring_*: (RING, H, W + 2 halo) and (RING, H/2, W/2 +
+    halo) int16; slot/mx/my/sp_index: (N,) int;
     sp_pred/sp_amount/zero: (N,) bool or uint8. The kernel takes int32
     ints and bool or uint8 flags as they come and converts other types
     first. The motion reach clamps to the window pads: ypad/cpad, the
@@ -217,8 +251,9 @@ def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
     if ring_y.device.type == "cpu":
         return pred_planes_plain(ring_y, ring_u, ring_v, slot, mx, my,
                                  sp_pred, sp_amount, sp_index, zero, ypad,
-                                 cpad)
-    ring, h, w = ring_y.shape
+                                 cpad, halo)
+    _check_halo(halo, "pred_planes")
+    h, w = _ring_core(ring_y, halo)
     if h % MB or w % MB:
         raise ValueError("pred_planes: plane dims must be multiples of 16")
     if (ypad, cpad) not in PRED_PADS:
@@ -226,9 +261,9 @@ def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
                          f"{PRED_PADS}, got {(ypad, cpad)}")
     dev = ring_y.device
     n = (h // MB) * (w // MB)
-    _check_ring(ring_y, "ring_y", (RING, h, w))
-    _check_ring(ring_u, "ring_u", (RING, h // 2, w // 2))
-    _check_ring(ring_v, "ring_v", (RING, h // 2, w // 2))
+    _check_ring(ring_y, "ring_y", (RING, h, w + 2 * halo))
+    _check_ring(ring_u, "ring_u", (RING, h // 2, w // 2 + halo))
+    _check_ring(ring_v, "ring_v", (RING, h // 2, w // 2 + halo))
     per_mb = [_field(t, name, n, kinds) for t, name, kinds in (
         (slot, "slot", _INT), (mx, "mx", _INT), (my, "my", _INT),
         (sp_pred, "sp_pred", _FLAG), (sp_amount, "sp_amount", _FLAG),
@@ -236,12 +271,15 @@ def pred_planes(ring_y, ring_u, ring_v, slot, mx, my, sp_pred, sp_amount,
     cs = h * w // 4
     buf = torch.empty(h * w + 2 * cs, dtype=I32, device=dev)
     out_y, out_u, out_v = buf.split([h * w, cs, cs])
-    fn = _build.kernel_fn("cairo_pred_planes", "ppppppppppiiiipppp")
+    fn = _build.kernel_fn("cairo_pred_planes", "ppppppppppiiiiipppp")
     _build.launch(fn, dev, ring_y.data_ptr(), ring_u.data_ptr(),
                   ring_v.data_ptr(), *(t.data_ptr() for t in per_mb),
-                  h, w, ypad, cpad, out_y.data_ptr(), out_u.data_ptr(),
+                  h, w, halo, ypad, cpad, out_y.data_ptr(), out_u.data_ptr(),
                   out_v.data_ptr())
-    LAUNCHES["pred_planes" if (ypad, cpad) == (Y_PAD, C_PAD)
-             else "pred_planes_wide"] += 1
+    name = "pred_planes" if (ypad, cpad) == (Y_PAD, C_PAD) \
+        else "pred_planes_wide"
+    LAUNCHES[name] += 1
+    if halo:
+        HALO_LAUNCHES[name] += 1
     return (out_y.view(h, w), out_u.view(h // 2, w // 2),
             out_v.view(h // 2, w // 2))

@@ -9,7 +9,10 @@ wire (block table + residual COO). The host's C++ entropy coder
 serializes the slice.
 
 The carried state is the recon ring and the persistent coefficient
-planes, as on the JAX package's Pallas path (no window caches). Copy
+planes, as on the JAX package's Pallas path (no window caches). The tiled
+path (gpu/shard.py) runs the same pieces on a tile with a ring halo:
+encode_planes and decode_planes stop before the ring write, which waits
+for the halo exchange there. Copy
 blocks keep their stale coefficient contents (FORMAT.md §4). The state
 dict is updated in place and also returned. The frame index and quality
 travel in the wire's 8-byte header and stay on the device: nothing here
@@ -57,12 +60,13 @@ def _header(wire):
 
 
 def _gather_pred(state, frame_index, target, mx, my, sp_pred, sp_amount,
-                 sp_index, zero):
-    """Prediction blocks for all MBs (zeroed where `zero`, i.e. intra)."""
+                 sp_index, zero, halo=0):
+    """Prediction blocks for all MBs (zeroed where `zero`, i.e. intra);
+    `halo`: the ring's halo columns (0 on a single card)."""
     slot_per_mb = (frame_index + RING - target) % RING
     py, pu, pv = cuda_pred.pred_planes(
         state["ring_y"], state["ring_u"], state["ring_v"], slot_per_mb,
-        mx, my, sp_pred, sp_amount, sp_index, zero)
+        mx, my, sp_pred, sp_amount, sp_index, zero, halo=halo)
     return (ops.plane_to_blocks(py, MB), ops.plane_to_blocks(pu, MB // 2),
             ops.plane_to_blocks(pv, MB // 2))
 
@@ -77,16 +81,19 @@ def _intra_best(n, device):
 
 
 def _classify_inter(src, src_planes, ring, px, py, quality, frame_index,
-                    n_refs=RING):
+                    n_refs=RING, *, x0=0, full_width=None, halo=0):
     """Inter-frame classification (encode.cpp:17-67, fast mode): one
-    search per reference offset, merged copy-first then by lower SAD."""
+    search per reference offset, merged copy-first then by lower SAD
+    (shard._classify_tile under tiling: x0, full_width and halo as
+    motion.inter_search takes them)."""
     best = _intra_best(px.shape[0], px.device)
     best["sad"] = src[0].abs().sum(dim=(1, 2), dtype=I32)
     for offset in range(1, n_refs):
         slot = ((frame_index + RING - offset) % RING).reshape(1)
         ref = tuple(p.index_select(0, slot)[0] for p in ring)
         cand = motion_mod.inter_search(src, src_planes, ref, ring, slot,
-                                       px, py, quality)
+                                       px, py, quality, x0=x0,
+                                       full_width=full_width, halo=halo)
         take = torch.where(cand["is_copy"] != best["is_copy"],
                            cand["is_copy"], cand["sad"] < best["sad"])
         for k in ("sad", "is_copy", "is_motion", "motion_x", "motion_y",
@@ -155,33 +162,45 @@ def reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb):
     return add_pred(residual(qy, qu, qv, qp, intra_qm), pred, copy_mb)
 
 
-def _finish_frame(state, rec, frame_index, copy_mb, qp, aligned_w,
-                  aligned_h, deblock):
-    """Recon blocks -> planes -> deblock -> ring slot frame_index % RING."""
-    return finish_planes(
-        state, ops.blocks_to_plane(rec[0], aligned_h, aligned_w),
+def _deblocked(rec, aligned_h, aligned_w, copy_mb, qp, deblock):
+    """Recon blocks -> planes -> deblock; the ring write is the
+    caller's."""
+    return deblock_planes(
+        ops.blocks_to_plane(rec[0], aligned_h, aligned_w),
         ops.blocks_to_plane(rec[1], aligned_h // 2, aligned_w // 2),
         ops.blocks_to_plane(rec[2], aligned_h // 2, aligned_w // 2),
-        frame_index, copy_mb, qp, deblock)
+        copy_mb, qp, deblock)
 
 
 def finish_planes(state, rec_y, rec_u, rec_v, frame_index, copy_mb, qp,
                   deblock):
     """Recon planes -> deblock (q 0 on copy MBs) -> ring slot
-    frame_index % RING (a device scalar: no host read), as
-    engine._finish_frame and the tail of
-    wavefront._conformance_decode_core do. Returns the deblocked planes."""
+    frame_index % RING (a device scalar: no host read), as the tail of
+    wavefront._conformance_decode_core does. Returns the deblocked
+    planes."""
+    planes = deblock_planes(rec_y, rec_u, rec_v, copy_mb, qp, deblock)
+    write_slot(state, planes, frame_index)
+    return planes
+
+
+def deblock_planes(rec_y, rec_u, rec_v, copy_mb, qp, deblock):
+    """The in-loop deblock (K8) of recon planes, q 0 on copy MBs."""
+    if not deblock:
+        return rec_y, rec_u, rec_v
     hb, wb = rec_y.shape[0] // MB, rec_y.shape[1] // MB
-    if deblock:
-        copy_map = copy_mb.reshape(hb, wb)
-        q_map = torch.where(copy_map, 0, qp.reshape(hb, wb))
-        rec_y, rec_u, rec_v = cuda_deblock.deblock_frame(
-            rec_y, rec_u, rec_v, copy_map, q_map)
-    slot = (frame_index % RING).reshape(1).long()
-    for key, plane in (("ring_y", rec_y), ("ring_u", rec_u),
-                       ("ring_v", rec_v)):
+    copy_map = copy_mb.reshape(hb, wb)
+    q_map = torch.where(copy_map, 0, qp.reshape(hb, wb))
+    return cuda_deblock.deblock_frame(rec_y, rec_u, rec_v, copy_map, q_map)
+
+
+def write_slot(state, planes, frame_index):
+    """Writes (y, u, v) planes of the ring's shape into ring slot
+    frame_index % RING in place; frame_index is an int32 device scalar
+    (no host read) or an int."""
+    slot = torch.as_tensor(frame_index, device=state["ring_y"].device)
+    slot = (slot % RING).reshape(1).long()
+    for key, plane in zip(("ring_y", "ring_u", "ring_v"), planes):
         state[key].index_copy_(0, slot, plane.to(torch.int16)[None])
-    return rec_y, rec_u, rec_v
 
 
 def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
@@ -191,21 +210,42 @@ def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
     state's device, the source wire (native.rgb_to_yuv8 / rgb_to_yuv5d)
     prefixed with the 8-byte [frame_index, quality] int32 header.
     Returns (state, outputs); the state is updated in place."""
-    dev = src_wire.device
-    px, py, wb, hb = _mb_coords(aligned_w, aligned_h, dev)
-    n = wb * hb
     frame_index, quality = _header(src_wire)
     unpack = (wire_mod.unpack_yuv5d if src_fmt == "yuv5d"
               else wire_mod.unpack_yuv8)
     y_in, u_in, v_in = unpack(src_wire[8:], aligned_h, aligned_w, frame_w,
                               frame_h)
+    outputs, rec, copy_mb = encode_planes(
+        y_in, u_in, v_in, state, frame_index, quality, is_inter=is_inter,
+        n_refs=n_refs, deblock=deblock, adaptive=adaptive)
+    write_slot(state, rec, frame_index)
+    outputs["wire"], outputs["wire_tail"] = wire_mod.pack_encode_wire(
+        outputs, state["coef_y"], state["coef_u"], state["coef_v"], copy_mb)
+    return state, outputs
+
+
+def encode_planes(y_in, u_in, v_in, state, frame_index, quality, *,
+                  is_inter, n_refs=RING, deblock=True, adaptive=True, x0=0,
+                  full_width=None, halo=0):
+    """The body of encode_step from the int32 source planes: search,
+    prediction, transform, quantization, the coefficient planes (updated
+    in the state) and the deblocked reconstruction. Returns (outputs,
+    (rec_y, rec_u, rec_v), the per-MB copy flags). The ring slot is not
+    written: the caller writes it (write_slot), on a tile after
+    the halo exchange. x0, full_width and halo as motion.inter_search
+    takes them (gpu/shard.py's tiles; 0, None, 0 on a single card)."""
+    dev = y_in.device
+    aligned_h, aligned_w = y_in.shape
+    px, py, wb, hb = _mb_coords(aligned_w, aligned_h, dev)
+    n = wb * hb
     src = (ops.plane_to_blocks(y_in, MB), ops.plane_to_blocks(u_in, MB // 2),
            ops.plane_to_blocks(v_in, MB // 2))
     ring = (state["ring_y"], state["ring_u"], state["ring_v"])
 
     if is_inter:
         best = _classify_inter(src, (y_in, u_in, v_in), ring, px, py,
-                               quality, frame_index, n_refs)
+                               quality, frame_index, n_refs, x0=x0,
+                               full_width=full_width, halo=halo)
     else:
         best = _intra_best(n, dev)
     block_type = (best["is_intra"].to(I32) * INTRA_BIT
@@ -214,7 +254,7 @@ def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
 
     pred = _gather_pred(state, frame_index, best["target"], best["motion_x"],
                         best["motion_y"], best["sp_pred"], best["sp_amount"],
-                        best["sp_index"], best["is_intra"])
+                        best["sp_index"], best["is_intra"], halo)
 
     # --- residual transform, adaptive QP, quantization
     res = tuple(ops.wrap16(s - p) for s, p in zip(src, pred))
@@ -238,10 +278,9 @@ def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
         state[key] = ops.blocks_to_plane(torch.where(copy3, stale, q), h, w) \
             .to(torch.int16)
 
-    # --- reconstruction, deblock, ring update
-    rec = reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb)
-    _finish_frame(state, rec, frame_index, copy_mb, qp, aligned_w,
-                  aligned_h, deblock)
+    # --- reconstruction, deblock
+    rec = _deblocked(reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb),
+                     aligned_h, aligned_w, copy_mb, qp, deblock)
 
     outputs = dict(
         block_type=block_type.to(torch.uint8),
@@ -254,16 +293,31 @@ def encode_step(src_wire, state, *, aligned_w, aligned_h, frame_w, frame_h,
         variance=ops.wrap16(variance).to(torch.int16),
         coef_y=state["coef_y"], coef_u=state["coef_u"],
         coef_v=state["coef_v"])
-    outputs["wire"], outputs["wire_tail"] = wire_mod.pack_encode_wire(
-        outputs, state["coef_y"], state["coef_u"], state["coef_v"], copy_mb)
-    return state, outputs
+    return outputs, rec, copy_mb
 
 
 def _decode_common(table, coef_y, coef_u, coef_v, state, frame_index,
-                   aligned_w, aligned_h, deblock=True):
+                   deblock=True):
     """Shared reconstruction body (decode.cpp:15-144, fast-mode streams).
     coef planes int32-valued; returns (rec_y, rec_u, rec_v) and updates
     the state in place."""
+    out = decode_planes(table, coef_y, coef_u, coef_v, state, frame_index,
+                        deblock)
+    write_slot(state, out, frame_index)
+    state["coef_y"] = coef_y.to(torch.int16)
+    state["coef_u"] = coef_u.to(torch.int16)
+    state["coef_v"] = coef_v.to(torch.int16)
+    return out
+
+
+def decode_planes(table, coef_y, coef_u, coef_v, state, frame_index,
+                  deblock=True, halo=0):
+    """The deblocked reconstruction of one fast-mode frame (decode.cpp:
+    15-144) from its block table and int32-valued coefficient planes,
+    against the state's ring (halo: its halo columns); the ring slot is
+    not written (_decode_common writes it; a tile, after the halo
+    exchange)."""
+    aligned_h, aligned_w = coef_y.shape
     block_type = table["block_type"].to(I32)
     is_intra = (block_type & INTRA_BIT) != 0
     is_motion = (block_type & MOTION_BIT) != 0
@@ -278,16 +332,11 @@ def _decode_common(table, coef_y, coef_u, coef_v, state, frame_index,
     intra_default = is_intra & ~is_motion
     pred = _gather_pred(state, frame_index, target, mx, my, sp_pred,
                         table["sp_amount"], table["sp_index"].to(I32),
-                        intra_default)
+                        intra_default, halo)
 
     rec = reconstruct(*coef_blocks(coef_y, coef_u, coef_v), qp,
                       intra_default, pred, is_copy)
-    out = _finish_frame(state, rec, frame_index, is_copy, qp, aligned_w,
-                        aligned_h, deblock)
-    state["coef_y"] = coef_y.to(torch.int16)
-    state["coef_u"] = coef_u.to(torch.int16)
-    state["coef_v"] = coef_v.to(torch.int16)
-    return out
+    return _deblocked(rec, aligned_h, aligned_w, is_copy, qp, deblock)
 
 
 def decode_step(table, coef, state, frame_index, *, width, height,
@@ -299,7 +348,7 @@ def decode_step(table, coef, state, frame_index, *, width, height,
         table, coef["coef_y"].to(I32), coef["coef_u"].to(I32),
         coef["coef_v"].to(I32), state,
         torch.tensor(frame_index, dtype=I32, device=state["ring_y"].device),
-        aligned_w, aligned_h, deblock)
+        deblock)
     rgb = ops.yuv420_to_rgb(rec_y[:height, :width],
                             rec_u[:(height + 1) // 2, :(width + 1) // 2],
                             rec_v[:(height + 1) // 2, :(width + 1) // 2])
@@ -322,8 +371,7 @@ def decode_step_coo(in_wire, state, *, aligned_w, aligned_h, frame_w=None,
     coef_y, coef_u, coef_v = carry_coef(
         state, is_copy, coo_planes(body, k, aligned_w, aligned_h))
     rec_y, rec_u, rec_v = _decode_common(
-        table, coef_y, coef_u, coef_v, state, frame_index, aligned_w,
-        aligned_h, deblock)
+        table, coef_y, coef_u, coef_v, state, frame_index, deblock)
     pack = (wire_mod.pack_yuv5d_wire if out_fmt == "yuv5d"
             else wire_mod.pack_yuv_wire)
     return state, pack(rec_y, rec_u, rec_v,

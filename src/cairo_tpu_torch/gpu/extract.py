@@ -14,15 +14,22 @@ import torch
 import torch.nn.functional as F
 
 
-def mb_windows(plane, mb_size: int, pad: int):
-    """(H, W) plane -> (hb*wb, S, S) windows, S = mb_size+2*pad.
+def mb_windows(plane, mb_size: int, pad: int, prepad_x: int = 0):
+    """(H, W + 2*prepad_x) plane -> (hb*wb, S, S) windows, S =
+    mb_size+2*pad, over the (H, W) core.
 
-    Window n covers plane rows [py-pad, py+mb_size+pad) and columns
-    [px-pad, px+mb_size+pad) for the MB at (px, py); out-of-frame area is
-    zero."""
-    height, width = plane.shape
+    Window n covers core rows [py-pad, py+mb_size+pad) and columns
+    [px-pad, px+mb_size+pad) for the MB at (px, py); out-of-plane area is
+    zero. `prepad_x` marks a horizontal margin the plane already has (a
+    tile's halo of its neighbours' columns, gpu/shard.py), read instead of
+    zero padding (extract.py:26-46)."""
+    height = plane.shape[0]
+    width = plane.shape[1] - 2 * prepad_x
     size = mb_size + 2 * pad
-    padded = F.pad(plane, (pad, pad, pad, pad))
+    if prepad_x > pad:
+        plane = plane[:, prepad_x - pad:plane.shape[1] - (prepad_x - pad)]
+    padded = F.pad(plane, (max(pad - prepad_x, 0), max(pad - prepad_x, 0),
+                           pad, pad))
     wins = padded.unfold(0, size, mb_size).unfold(1, size, mb_size)
     hb, wb = height // mb_size, width // mb_size
     return wins[:hb, :wb].reshape(hb * wb, size, size)

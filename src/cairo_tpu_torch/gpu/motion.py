@@ -102,28 +102,33 @@ def _chroma_slice(win, cdx, cdy):
 
 
 def inter_search(src, src_planes, ref_planes, ring, slot, px, py, quality,
-                 *, x0=0, full_width=None):
+                 *, x0=0, full_width=None, halo=0):
     """Dense fast-mode search of every MB against one reference frame.
 
     src: per-MB (Y (N,16,16), U (N,8,8), V (N,8,8)) int32 blocks;
     src_planes: (y, u, v) int32 planes; ref_planes: (y, u, v) int16 planes
-    of the same shapes; ring: (ring_y, ring_u, ring_v) stacks and `slot`
-    the reference's ring slot (int32 scalar tensor) for the sub-pel
-    windows; px/py: (N,) MB pixel
-    coordinates; quality: int32 scalar tensor. `x0` is the tile's pixel
-    origin and `full_width` the frame width, so candidate validity is
-    judged against the whole frame while addressing stays tile-local."""
+    of the same heights, carrying a horizontal margin of `halo` columns
+    each side (halo // 2 in chroma; 0 on a single card); ring: (ring_y,
+    ring_u, ring_v) stacks of those planes and `slot` the reference's ring
+    slot (int32 scalar tensor) for the sub-pel windows; px/py: (N,) MB
+    pixel coordinates; quality: int32 scalar tensor. Under tiling (gpu/
+    shard.py), `x0` is the tile's pixel origin and `full_width` the
+    aligned frame width, so candidate validity is judged against the whole
+    frame while addressing stays tile-local, and the margin holds the
+    neighbouring tiles' pixels (tpu/motion.py:398-445)."""
     height = src_planes[0].shape[0]
     width = full_width if full_width is not None else src_planes[0].shape[1]
     mad_thr = (quality >> 2) + 1
 
     cmax = cuda_motion.chroma_max_maps(src_planes[1], src_planes[2],
-                                       ref_planes[1], ref_planes[2])
+                                       ref_planes[1], ref_planes[2],
+                                       halo // 2)
     mx, my, best_sad, best_mad, frozen = cuda_motion.dense_select(
-        src_planes[0], ref_planes[0], cmax, x0, width, height, mad_thr)
+        src_planes[0], ref_planes[0], cmax, x0, width, height, mad_thr,
+        halo)
 
     # ---- sub-pel refinement windows (per MB, centred on the best mv)
-    ywin, uwin, vwin = cuda_pred.gather_windows_yuv(ring, slot, mx, my)
+    ywin, uwin, vwin = cuda_pred.gather_windows_yuv(ring, slot, mx, my, halo)
     best_y = ywin[:, 1:17, 1:17]
     best_u = uwin[:, 1:9, 1:9]
     best_v = vwin[:, 1:9, 1:9]

@@ -196,6 +196,22 @@ def adaptive_qp(quality, mb_y):
 
 # ----------------------------------------------------------------- imaging
 
+def rgb_to_yuv420(rgb):
+    """(H, W, 3) uint8 -> (Y, U, V) int32 planes (convert.cpp semantics;
+    tpu/ops.py:221-232), on the tensor's device: the tiled encode step
+    converts its tile there (gpu/shard.py)."""
+    r, g, b = (rgb[..., i].to(I32) for i in range(3))
+    y = ((77 * r + 150 * g + 29 * b + 128) >> 8) + tables.LUMINANCE_SHIFT
+    cu = trunc_div_pos(-43 * r - 85 * g + 128 * b + 128, 256) + 128
+    cv = trunc_div_pos(128 * r - 107 * g - 21 * b + 128, 256) + 128
+    height, width = r.shape
+    u = (cu.reshape(height // 2, 2, width // 2, 2).sum(dim=(1, 3),
+                                                       dtype=I32) + 2) >> 2
+    v = (cv.reshape(height // 2, 2, width // 2, 2).sum(dim=(1, 3),
+                                                       dtype=I32) + 2) >> 2
+    return y, u, v
+
+
 def yuv420_to_rgb(y, u, v):
     """int32 planes -> (H, W, 3) uint8."""
     yy = y.to(I32) - tables.LUMINANCE_SHIFT

@@ -1,6 +1,8 @@
 """Card-only tests of the port: the CUDA kernels K1-K8 (K4 at both pad
-sets) against their plain versions, and the fast-mode and conformance
-encoders and the wavefront decode on the card against the CPU. Each test is
+sets; K1-K4 also with a tile's reference margin and ring halo) against
+their plain versions, and the fast-mode and conformance encoders, the
+wavefront decode and the tiled encoder and decoder on the card against
+the CPU. Each test is
 marked `cuda` and skips without a CUDA card. The file imports neither jax
 nor cairo_tpu, so it runs on a machine without them:
 
@@ -13,7 +15,7 @@ import torch
 
 from cairo_tpu_torch.gpu import (api, cuda_deblock, cuda_inter, cuda_motion,
                                  cuda_pred, cuda_wave, cuda_wavedec, deblock,
-                                 ops, wavefront, wire)
+                                 ops, shard, tiled, wavefront, wire)
 from cairo_tpu_torch.synth import synth_frames
 from util_deblock import KINDS, SIZES, TILE_SIZES, deblock_case
 
@@ -825,3 +827,146 @@ def test_two_pipelines_in_alternation(dev):
     for i in (0, 1):
         _same((chunks[i], rgb[i]), want[i])
         assert decs[i].host_frames == 0
+
+
+# ---------------------------------------------------------------- tiling
+
+# (core width, height) of a tile: a quarter of 1080p (480 + 64 columns of
+# halo in the ring), and small ones
+HALO_SIZES = [(480, 1088), (64, 48), (16, 96)]
+
+
+def _margined(rng, h, w, m, lo, hi, real, dev):
+    """An (h, w + 2 m) int16 plane: random core, margin random or zero."""
+    a = rng.integers(lo, hi, (h, w + 2 * m))
+    if not real:
+        a[:, :m] = 0
+        a[:, w + m:] = 0
+    return _t(a, torch.int16).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("real", [True, False], ids=["real", "zero"])
+@pytest.mark.parametrize("halo", [0, shard.HALO])
+@pytest.mark.parametrize("size", HALO_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_motion_kernels_with_a_margin(dev, size, halo, real):
+    """K1 and K2 with the reference margin of a tile's ring (halo 32 luma,
+    16 chroma) and without, at a tile origin inside a wider frame."""
+    w, h = size
+    rng = np.random.default_rng(w + h + halo)
+    src = [_t(rng.integers(0, 256, s).astype(np.int32)).to(dev)
+           for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    ref_y = _margined(rng, h, w, halo, -300, 560, real, dev)
+    ref_u, ref_v = (_margined(rng, h // 2, w // 2, halo // 2, -300, 560,
+                              real, dev) for _ in "uv")
+    cmax = cuda_motion.chroma_max_maps(src[1], src[2], ref_u, ref_v,
+                                       halo // 2)
+    _eq(cmax, cuda_motion.chroma_max_maps_plain(src[1], src[2], ref_u,
+                                                ref_v, halo // 2))
+    thr = torch.tensor(5, dtype=torch.int32, device=dev)
+    for x0 in (0, w, 2 * w):
+        args = (src[0], ref_y, cmax, x0, 3 * w, h, thr, halo)
+        for g, wnt in zip(cuda_motion.dense_select(*args),
+                          cuda_motion.dense_select_plain(*args)):
+            _eq(g, wnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("real", [True, False], ids=["real", "zero"])
+@pytest.mark.parametrize("halo", [0, shard.HALO])
+@pytest.mark.parametrize("size", HALO_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pred_kernels_with_a_ring_halo(dev, size, halo, real):
+    """K3's three-plane launch and K4 at both pad sets on a ring with a
+    halo and without, motion within reach and clamped beyond it."""
+    w, h = size
+    rng = np.random.default_rng(3 * w + h + halo)
+    ring = tuple(torch.stack([_margined(rng, ph, pw, m, -600, 600, real, dev)
+                              for _ in range(RING)])
+                 for ph, pw, m in ((h, w, halo), (h // 2, w // 2, halo // 2),
+                                   (h // 2, w // 2, halo // 2)))
+    n = (h // 16) * (w // 16)
+    mx = rng.integers(-20, 21, n).astype(np.int32)
+    my = rng.integers(-20, 21, n).astype(np.int32)
+    mx[:max(1, n // 8)], my[:max(1, n // 8)] = -40, 40
+    mx, my = _t(mx).to(dev), _t(my).to(dev)
+    slot = torch.tensor([1], dtype=torch.int32, device=dev)
+    for g, wnt in zip(cuda_pred.gather_windows_yuv(ring, slot, mx, my, halo),
+                      cuda_pred.gather_windows_yuv_plain(ring, slot, mx, my,
+                                                         halo), strict=True):
+        _eq(g, wnt)
+    per_mb = [_t(a).to(dev) for a in (
+        rng.integers(0, 4, n).astype(np.int32), rng.random(n) < 0.5,
+        rng.random(n) < 0.5, rng.integers(0, 8, n).astype(np.int32),
+        rng.random(n) < 0.2)]
+    args = (*ring, per_mb[0], mx, my, *per_mb[1:])
+    for pads in cuda_pred.PRED_PADS:
+        for g, wnt in zip(cuda_pred.pred_planes(*args, *pads, halo=halo),
+                          cuda_pred.pred_planes_plain(*args, *pads,
+                                                      halo=halo),
+                          strict=True):
+            _eq(g, wnt)
+
+
+@pytest.mark.cuda
+def test_halo_wrappers_check_alignment(dev):
+    ring = tuple(torch.zeros((RING, 16, 16 + 2 * 4), dtype=torch.int16,
+                             device=dev) for _ in range(3))
+    mx = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        cuda_pred.gather_windows_yuv(ring, 0, mx, mx, 4)
+    src = torch.zeros((8, 8), dtype=torch.int32, device=dev)
+    ref = torch.zeros((8, 8 + 2 * 4), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):
+        cuda_motion.chroma_max_maps(src, src, ref, ref, 4)
+
+
+def _tiled_run(devices, n_tiles, frames, quality=16):
+    enc = tiled.TiledEncoder(n_tiles=n_tiles, devices=devices)
+    enc.set_quality(quality)
+    dec = tiled.TiledDecoder(devices=devices)
+    chunks, rgb, recon = [], [], []
+    for f in frames:
+        chunks.append(enc.encode(f))
+        recon.append(enc.recon_rgb())
+        rgb.append(dec.decode(chunks[-1]))
+    return chunks, rgb, recon
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_tiled_card_matches_cpu(dev, k):
+    """TiledEncoder and TiledDecoder with k tiles on one card against the
+    same on the CPU: chunks, decoded RGB and recon_rgb()."""
+    frames = synth_frames(320, 96, 4, seed=20 + k)
+    want = _tiled_run(["cpu"] * k, k, frames)
+    got = _tiled_run(["cuda:0"] * k, k, frames)
+    assert got[0] == want[0]
+    for g, wnt, r in zip(got[1], want[1], got[2]):
+        np.testing.assert_array_equal(g, wnt)
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.cuda
+def test_tiled_exchange_waits_for_the_neighbour(dev, monkeypatch):
+    """Two tiles on one card run on two compute streams (a DeviceQueue
+    each); tile 0's steps queue behind some 50 ms of device sleep and tile
+    1's do not, so an exchange copy that did not wait on tile 0's event
+    would take its strip before tile 0 wrote it: wrong bytes."""
+    def sleeping(step):
+        calls = [0]
+
+        def run(*args, **kwargs):
+            if calls[0] % 2 == 0:          # tile 0 of each frame
+                torch.cuda._sleep(100_000_000)
+            calls[0] += 1
+            return step(*args, **kwargs)
+        return run
+
+    for name in ("tile_encode_step", "tile_decode_step"):
+        monkeypatch.setattr(shard, name, sleeping(getattr(shard, name)))
+    frames = synth_frames(128, 64, 4, seed=31)
+    want = _tiled_run(["cpu"] * 2, 2, frames)
+    got = _tiled_run(["cuda:0"] * 2, 2, frames)
+    assert got[0] == want[0]
+    for g, wnt in zip(got[1], want[1]):
+        np.testing.assert_array_equal(g, wnt)
