@@ -86,7 +86,20 @@ Phases, one line each with the elapsed seconds:
      launched in each configuration, K1-K4 with the ring halo; prints the
      per-frame fps of tiled encode and decode at each tile count. Phase 2
      also holds K1-K4 at a tile's halo'd shapes (1088 x (480 + 64) luma)
-     against their plain versions, margins zeroed and real.
+     against their plain versions, margins zeroed and real;
+  9. library surface: the port's host reference engine (Evx1Encoder,
+     Evx1Decoder: numpy, sharing nothing with the device path) against
+     ConformanceGpuEncoder and GpuDecoder on the card over 1 intra + 2
+     inter synthetic 640x360 frames at q16 (chunks byte-identical, RGB
+     equal to Evx1Decoder's and the native decoder's, no host frame, K4
+     at 33/17, K5, K6, K7 and K8 launched, their counts set to 0 just
+     before), with both encoders' fps and the host CPU's model; the 10
+     analysis metrics and the 6 transforms of gpu/ops (fdct4, idct4,
+     fdct16_line, idct16_line, fdct16, idct16) on the card against the
+     CPU, exact, over the 8,160 MBs of a 1080p frame and over blocks of
+     the whole int16 range with -32768 in them; each entropy backend
+     round-trips 10,000 values, and those that share the ABAC coder with
+     the slice codec write its writers' bits; a `library {json}` line.
 The line before the last is a JSON object with each kernel's launches (K4
 once per pad set; K7's in phase 5; K8's in phases 3 and 5 together, by
 path under launches_by_path; phase 7's pipelined runs under
@@ -1418,6 +1431,268 @@ def phase_tiled(torch, np, gpu, smi):
     return total, summary
 
 
+def cpu_model():
+    """The host CPU as /proc/cpuinfo describes it: model name, vendor,
+    family and model numbers (a virtual machine may report the name as
+    unknown), and the cores this process may use."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    return (f"{fields.get('model name', 'unknown')} "
+            f"({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')}, "
+            f"{len(os.sched_getaffinity(0))} cores)")
+
+
+# the conformance path's kernels phase 9 must see launched: (module, key)
+LIBRARY_PATH_KERNELS = (("cuda_pred", "pred_planes_wide"),
+                        ("cuda_inter", "inter_search"),
+                        ("cuda_wave", "wave_pass"),
+                        ("cuda_wavedec", "wave_decode"),
+                        ("cuda_deblock", "deblock_frame"))
+# analysis metrics: (name, call on (luma pair, chroma quadruple))
+LIBRARY_METRICS = (
+    ("block_sad_delta", lambda a, y, c: a.block_sad(y[0])),
+    ("block_sad", lambda a, y, c: a.block_sad(y[0], y[1])),
+    ("block_mse", lambda a, y, c: a.block_mse(y[0], y[1])),
+    ("block_ssd", lambda a, y, c: a.block_ssd(y[0], y[1])),
+    ("block_mad", lambda a, y, c: a.block_mad(y[0], c[0], c[1], y[1], c[2],
+                                              c[3])),
+    ("block_mean", lambda a, y, c: a.block_mean(y[0])),
+    ("nonzero_block_mean", lambda a, y, c: a.nonzero_block_mean(y[0])),
+    ("block_variance", lambda a, y, c: a.block_variance(y[0])),
+    ("block_variance2", lambda a, y, c: a.block_variance2(y[0])),
+    ("block_variance3", lambda a, y, c: a.block_variance3(y[0])),
+)
+LIBRARY_TRANSFORMS = ("fdct4", "idct4", "fdct16_line", "idct16_line",
+                      "fdct16", "idct16")
+
+
+def library_metric_inputs(np, yuv0, yuv1, seed):
+    """Per-MB inputs of the analysis metrics: the 8,160 MBs of a 1080p
+    frame (luma and the co-located chroma of two consecutive frames, the
+    planes padded to 1088 rows like the codec's) and as many blocks drawn
+    over the whole int16 range with -32768 in them."""
+    def mbs(plane, size, rows):
+        p = np.zeros((rows, plane.shape[1]), np.int16)
+        p[:plane.shape[0]] = plane
+        h, w = p.shape
+        return p.reshape(h // size, size, w // size, size) \
+            .swapaxes(1, 2).reshape(-1, size, size)
+
+    frame = ([mbs(yuv1[0], 16, 1088), mbs(yuv0[0], 16, 1088)],
+             [mbs(p, 8, 544) for p in (yuv1[1], yuv1[2], yuv0[1], yuv0[2])])
+    n = frame[0][0].shape[0]
+    rng = np.random.default_rng(seed)
+
+    def wide(size):
+        b = rng.integers(-32768, 32768, (n, size, size)).astype(np.int16)
+        b[0] = -32768
+        b[1] = 0
+        b[2, 0, 0] = 0
+        b[3, 4, 5] = -32768
+        return b
+
+    return {"1080p_frame": frame,
+            "int16_range": ([wide(16), wide(16)],
+                            [wide(8) for _ in range(4)])}
+
+
+def library_backends(np, seed, n=10_000):
+    """Each lossless backend round-trips n values. (The backends that share
+    the ABAC coder with the slice codec call its writers, so their bits are
+    the slice codec's.) Returns {backend: bits}."""
+    from cairo_tpu_torch.entropy import backends as B
+
+    rng = np.random.default_rng(seed)
+    bits = {}
+
+    def reader(out):
+        return B.BitReader(out.getvalue(), out.bit_count)
+
+    def coded(write, items):
+        out, coder = B.BitWriter(), B.EntropyCoder()
+        for x in items:
+            write(x, coder, out)
+        coder.finish_encode(out)
+        return out
+
+    def check(name, ok, out):
+        if not ok:
+            fail(f"library: backend {name} did not round-trip {n} values")
+        bits[name] = out.bit_count
+
+    vals = rng.integers(0, 8, n)
+    out = B.BitWriter()
+    B.huffman_encode_values(vals, out)
+    check("huffman", np.array_equal(
+        B.huffman_decode_values(reader(out), n), vals), out)
+
+    signed = rng.integers(-32768, 32768, n).astype(np.int16)
+    signed[: n // 2] = rng.integers(-300, 301, n // 2)
+    signed[:2] = (-32768, 32767)
+    unsigned = rng.integers(0, 65536, n)
+    unsigned[: n // 2] = rng.integers(0, 300, n // 2)
+    for mode, v, wrap in (("signed", signed, np.int16),
+                          ("unsigned", unsigned, np.uint16)):
+        is_signed = mode == "signed"
+        out = B.BitWriter()
+        B.golomb_encode_values(v, out, signed=is_signed)
+        back = B.golomb_decode_values(reader(out), n, signed=is_signed)
+        check(f"golomb_{mode}", np.array_equal(back.view(wrap),
+                                               v.astype(wrap)), out)
+        out = coded(lambda x, c, o: B.entropy_encode_value(
+            int(x), c, o, signed=is_signed), v)
+        src, coder = reader(out), B.EntropyCoder()
+        coder.start_decode(src)
+        back = np.array([B.entropy_decode_value(coder, src, signed=is_signed)
+                         for _ in range(n)])
+        check(f"entropy_{mode}", np.array_equal(back.astype(wrap),
+                                                v.astype(wrap)), out)
+
+    for size in (4, 8, 16):
+        blocks = rng.integers(-300, 301, (-(-n // size ** 2), size, size)
+                              ).astype(np.int16)
+        blocks[::2].reshape(len(blocks[::2]), -1)[:, size:] = 0
+        blocks[0, 0, 0] = -32768
+        out = coded(B.entropy_encode_block, blocks)
+        src, coder = reader(out), B.EntropyCoder()
+        coder.start_decode(src)
+        check(f"block_{size}x{size}", all(np.array_equal(
+            B.entropy_decode_block(size, coder, src), b) for b in blocks),
+            out)
+        if size == 8:
+            out = coded(B.entropy_rle_encode_8x8, blocks)
+            src, coder = reader(out), B.EntropyCoder()
+            coder.start_decode(src)
+            check("rle_8x8", all(np.array_equal(
+                B.entropy_rle_decode_8x8(coder, src), b) for b in blocks),
+                out)
+    return bits
+
+
+def phase_library(torch, np, gpu):
+    """Phase 9: the library surface. The port's host reference engine
+    (Evx1Encoder / Evx1Decoder, which shares nothing with the device path)
+    anchors ConformanceGpuEncoder's bytes and GpuDecoder's RGB at 640x360;
+    analysis and the 4x4/16x16 transforms on the card against the CPU;
+    the entropy backends round-trip. Returns a summary dict."""
+    from cairo_tpu_torch import Evx1Decoder, Evx1Encoder, analysis, native
+    from cairo_tpu_torch.cpuref import imaging, stream
+    from cairo_tpu_torch.synth import synth_frames
+
+    t_phase = time.perf_counter()
+    api, ops = gpu["api"], gpu["ops"]
+    frames = synth_frames(640, 360, 3, seed=SEED % 983)
+    for mod, key in LIBRARY_PATH_KERNELS:
+        gpu[mod].LAUNCHES[key] = 0
+    dev = torch.device("cuda")
+    ref, card = Evx1Encoder(), api.ConformanceGpuEncoder(device=dev)
+    ref.set_quality(16)
+    card.set_quality(16)
+    ref_s, card_s, chunks = [], [], []
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        want = ref.encode(f)
+        ref_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = card.encode(f)
+        torch.cuda.synchronize()
+        card_s.append(time.perf_counter() - t0)
+        if got != want:
+            fail(f"library: ConformanceGpuEncoder's 640x360 frame {i} "
+                 f"differs from Evx1Encoder's ({len(got)} vs {len(want)} "
+                 f"bytes)")
+        chunks.append(got)
+    dec, rdec = api.GpuDecoder(device=dev), Evx1Decoder()
+    dec_s, rdec_s = [], []
+    host = host_decode(np, native, stream, chunks)
+    for i, c in enumerate(chunks):
+        t0 = time.perf_counter()
+        got = dec.decode(c)
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = rdec.decode(c)
+        rdec_s.append(time.perf_counter() - t0)
+        if not np.array_equal(got, want):
+            fail(f"library: GpuDecoder's frame {i} differs from "
+                 f"Evx1Decoder's")
+        if not np.array_equal(got, host[i]):
+            fail(f"library: GpuDecoder's frame {i} differs from the native "
+                 f"C++ decoder's")
+    if dec.host_frames:
+        fail(f"library: {dec.host_frames} frames took the host decoder")
+    launches = {key: gpu[mod].LAUNCHES[key]
+                for mod, key in LIBRARY_PATH_KERNELS}
+    for key, count in launches.items():
+        if count == 0:
+            fail(f"library: kernel {key} was never launched")
+    anchor_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    big = synth_frames(1920, 1080, 2, seed=SEED % 977)
+    yuv = [imaging.rgb_to_yuv420(f) for f in big]
+    cases = library_metric_inputs(np, yuv[0], yuv[1], SEED)
+    for label, (y, c) in cases.items():
+        ty = [torch.from_numpy(a).to(dev) for a in y]
+        tc = [torch.from_numpy(a).to(dev) for a in c]
+        cy = [torch.from_numpy(a) for a in y]
+        cc = [torch.from_numpy(a) for a in c]
+        for name, call in LIBRARY_METRICS:
+            got = call(analysis, ty, tc)
+            if not got.is_cuda:
+                fail(f"library: analysis.{name} did not run on the card "
+                     f"({label})")
+            if not torch.equal(got.cpu(), call(analysis, cy, cc)):
+                fail(f"library: analysis.{name} on the card differs from "
+                     f"the CPU ({label})")
+        got = analysis.block_sad(y[0], y[1])
+        if not got.is_cuda:
+            fail(f"library: analysis on arrays did not go to the card "
+                 f"({label})")
+        if not torch.equal(got.cpu(), analysis.block_sad(cy[0], cy[1])):
+            fail(f"library: analysis on arrays sent to the card differs "
+                 f"({label})")
+        planes = {4: y[0].reshape(-1, 4, 4, 4, 4).swapaxes(2, 3)
+                  .reshape(-1, 4, 4), 16: y[0]}
+        for name in LIBRARY_TRANSFORMS:
+            x = planes[4 if name.endswith("4") else 16]
+            if name.endswith("_line"):
+                x = x.reshape(-1, 16)
+            fn = getattr(ops, name)
+            xt = torch.from_numpy(np.ascontiguousarray(x))
+            got = fn(xt.to(dev))
+            if not got.is_cuda:
+                fail(f"library: ops.{name} did not run on the card "
+                     f"({label})")
+            if not torch.equal(got.cpu(), fn(xt)):
+                fail(f"library: ops.{name} on the card differs from the "
+                     f"CPU ({label})")
+    n_mbs = cases["1080p_frame"][0][0].shape[0]
+    card_cpu_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bits = library_backends(np, SEED)
+    backends_s = time.perf_counter() - t0
+    return dict(
+        ref_inter_fps=(len(frames) - 1) / sum(ref_s[1:]),
+        card_inter_fps=(len(frames) - 1) / sum(card_s[1:]),
+        ref_encode_ms=[round(s * 1e3, 1) for s in ref_s],
+        card_encode_ms=[round(s * 1e3, 1) for s in card_s],
+        gpu_decode_ms=[round(s * 1e3, 1) for s in dec_s],
+        ref_decode_ms=[round(s * 1e3, 1) for s in rdec_s],
+        launches=launches, mbs=n_mbs, backend_bits=bits,
+        anchor_s=anchor_s, card_cpu_s=card_cpu_s, backends_s=backends_s,
+        seconds=time.perf_counter() - t_phase, cpu=cpu_model())
+
+
 # pipeline stages labelled in the --profile trace: (module, attribute)
 PROFILE_STAGES = (
     ("native", "rgb_to_yuv5d"), ("native", "encode_slice"),
@@ -1710,6 +1985,24 @@ def main():
     log(f"phase 8: 352x288 over 4 tiles: card and CPU chunks byte-identical; "
         f"phase seconds {tsum['seconds']:.1f} on {smi}")
     print("tiled " + json.dumps(tsum), flush=True)
+
+    lib = phase_library(torch, np, gpu)
+    log(f"phase 9: 640x360 q16, 3 frames: ConformanceGpuEncoder's chunks "
+        f"equal Evx1Encoder's; inter frames Evx1Encoder "
+        f"{lib['ref_inter_fps']:.3f} fps on the host ({lib['cpu']}), "
+        f"ConformanceGpuEncoder {lib['card_inter_fps']:.2f} fps on {smi}; "
+        f"encode ms host {lib['ref_encode_ms']}, card "
+        f"{lib['card_encode_ms']}; GpuDecoder's RGB equals Evx1Decoder's and "
+        f"the native decoder's, host frames 0, decode ms card "
+        f"{lib['gpu_decode_ms']}, host {lib['ref_decode_ms']}; launches "
+        f"{lib['launches']}")
+    log(f"phase 9: analysis (10 metrics) and the 6 transforms exact on the "
+        f"card against the CPU over the {lib['mbs']} MBs of a 1080p frame "
+        f"and over the int16 range; backends round-trip 10000 values each, "
+        f"bits {lib['backend_bits']}; seconds: anchor "
+        f"{lib['anchor_s']:.1f}, card against CPU {lib['card_cpu_s']:.1f}, "
+        f"backends {lib['backends_s']:.1f}, phase {lib['seconds']:.1f}")
+    print("library " + json.dumps(lib), flush=True)
 
     meta = {
         "K1": ("chroma_max_maps", "src/cairo_tpu_torch/gpu/csrc/motion.cu",

@@ -12,6 +12,13 @@ Public surface:
                               tile) mesh of devices (gpu/tiled.py,
                               gpu/shard.py, gpu/cluster.py); streams are
                               byte-identical to cairo_tpu's tiled ones.
+  Evx1Encoder / Evx1Decoder -- the numpy reference engine (cpuref/), a
+                              host engine as in cairo_tpu: bit-exact with
+                              the reference encoder, sharing nothing with
+                              the device path it is held against.
+  analysis, entropy.backends -- the analysis.h block metrics (torch, on
+                              the input's device) and the four lossless
+                              backends of stream.h (host).
   checkpoint / metrics     -- session save/resume, per-frame stats.
 
 Layout mirrors cairo_tpu: `gpu/` is the counterpart of `cairo_tpu/tpu/`,
@@ -22,11 +29,12 @@ The package imports torch, numpy and the standard library only.
 
 from . import checkpoint, metrics, tables
 from .blocktypes import BlockTable
+from .cpuref.api import Evx1Decoder, Evx1Encoder
 
 __version__ = "0.1.0"
 __all__ = ["GpuEncoder", "GpuDecoder", "ConformanceGpuEncoder",
-           "TiledEncoder", "TiledDecoder", "BlockTable", "checkpoint",
-           "metrics", "tables"]
+           "TiledEncoder", "TiledDecoder", "Evx1Encoder", "Evx1Decoder",
+           "BlockTable", "checkpoint", "metrics", "tables"]
 
 
 def __getattr__(name):

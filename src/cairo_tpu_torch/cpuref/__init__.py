@@ -1,1 +1,1 @@
-"""Host-side (numpy) pieces of cairo_tpu.cpuref that the port needs: colour conversion and the stream header."""
+"""Copy of cairo_tpu.cpuref: the numpy reference engine (Evx1Encoder/Evx1Decoder in api.py), colour conversion and the stream header (host code)."""

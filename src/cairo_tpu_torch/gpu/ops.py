@@ -42,7 +42,8 @@ def _tables(device: str) -> dict:
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
     return settled(device, dict(
-        B=t(tables.DCT_BASIS_8), INTRA_QM=t(tables.INTRA_QM_8x8),
+        B=t(tables.DCT_BASIS_8), B4=t(tables.DCT_BASIS_4),
+        B16=t(tables.DCT_BASIS_16), INTRA_QM=t(tables.INTRA_QM_8x8),
         INTER_QM=t(tables.INTER_QM_8x8),
         LUMA_DC=t(tables.luma_dc_scale(np.arange(256))),
         CHROMA_DC=t(tables.chroma_dc_scale(np.arange(256)))))
@@ -130,6 +131,71 @@ def idct8(blocks):
     x = blocks.to(I32)
     t = pass1d(x.transpose(-1, -2)).transpose(-1, -2)
     return pass1d(t)
+
+
+# -- 4x4 family and true 16x16 line transforms (library parity; the
+#    counterparts of tpu/ops.py:153-218, transform.cpp:36-175, 455-521).
+#    No path calls them: the wire's 16x16 is four 8x8 quadrants. int32
+#    products and sums wrap like the as-built C; `>>` is arithmetic.
+
+def _fwd4_1d(x, b4):
+    t = (x[..., None, :] * b4).sum(-1, dtype=I32)     # x @ B4.T
+    dc = t[..., :1] >> 1
+    ac = (t[..., 1:] * 2896) >> 12
+    return rounded_div_pos(torch.cat([dc, ac], -1), 128)
+
+
+def _inv4_1d(v, b4):
+    terms = v[..., :, None] * b4
+    t0 = terms[..., 0, :] >> 1
+    tk = ((terms[..., 1:, :] * 2896) >> 12).sum(-2, dtype=I32)
+    return rounded_div_pos(t0 + tk, 128)
+
+
+def fdct4(blocks):
+    """Forward 4x4 DCT over (..., 4, 4) int blocks (transform_4x4)."""
+    b4 = consts(blocks.device)["B4"]
+    t = wrap16(_fwd4_1d(blocks.to(I32), b4))
+    return wrap16(_fwd4_1d(t.transpose(-1, -2), b4).transpose(-1, -2))
+
+
+def idct4(blocks):
+    """Inverse 4x4 DCT (vertical pass then horizontal)."""
+    b4 = consts(blocks.device)["B4"]
+    x = blocks.to(I32)
+    t = wrap16(_inv4_1d(x.transpose(-1, -2), b4).transpose(-1, -2))
+    return wrap16(_inv4_1d(t, b4))
+
+
+def fdct16_line(lines):
+    """transform_16x16_line over (..., 16) int sample vectors."""
+    b16 = consts(lines.device)["B16"]
+    t = (lines.to(I32)[..., None, :] * b16).sum(-1, dtype=I32)
+    dc = trunc_div_pos(t[..., :1] * 32, 128)
+    ac = trunc_div_pos(t[..., 1:] * 45, 128)
+    return wrap16(rounded_div_pos(torch.cat([dc, ac], -1), 128))
+
+
+def idct16_line(lines):
+    """inverse_transform_16x16_line over (..., 16) coefficient vectors."""
+    b16 = consts(lines.device)["B16"]
+    terms = lines.to(I32)[..., :, None] * b16
+    t0 = trunc_div_pos(terms[..., 0, :] * 32, 128)
+    tk = trunc_div_pos(terms[..., 1:, :] * 45, 128).sum(-2, dtype=I32)
+    return wrap16(rounded_div_pos(t0 + tk, 128))
+
+
+def fdct16(blocks):
+    """True 16x16 DCT composed from the line transform (rows, then
+    columns)."""
+    t = fdct16_line(blocks)
+    return fdct16_line(t.transpose(-1, -2)).transpose(-1, -2)
+
+
+def idct16(blocks):
+    """True 16x16 inverse DCT (columns, then rows)."""
+    t = idct16_line(blocks.transpose(-1, -2)).transpose(-1, -2)
+    return idct16_line(t)
 
 
 # ---------------------------------------------------------------- quantize

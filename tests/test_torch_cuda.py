@@ -2,7 +2,9 @@
 sets; K1-K4 also with a tile's reference margin and ring halo) against
 their plain versions, and the fast-mode and conformance encoders, the
 wavefront decode and the tiled encoder and decoder on the card against
-the CPU. Each test is
+the CPU; analysis and the 4x4/16x16 transforms on the card against the
+CPU, and the conformance encoder against the host reference engine
+(Evx1Encoder). Each test is
 marked `cuda` and skips without a CUDA card. The file imports neither jax
 nor cairo_tpu, so it runs on a machine without them:
 
@@ -970,3 +972,90 @@ def test_tiled_exchange_waits_for_the_neighbour(dev, monkeypatch):
     assert got[0] == want[0]
     for g, wnt in zip(got[1], want[1]):
         np.testing.assert_array_equal(g, wnt)
+
+
+# -- the library surface: analysis, the 4x4 and 16x16 transforms, and the
+#    reference engine as the card's byte anchor
+
+def _library_blocks(size, n, seed):
+    rng = np.random.default_rng(seed)
+    b = rng.integers(-32768, 32768, (n, size, size)).astype(np.int16)
+    b[: n // 2] = rng.integers(-300, 301, (n // 2, size, size))
+    b[0] = -32768
+    b[1] = 0
+    b[2, 0, 0] = 0
+    b[3] = 32767
+    return b
+
+
+@pytest.mark.cuda
+def test_analysis_card_matches_cpu(dev):
+    """Every metric on the card against the CPU, exact, on tensors and on
+    arrays sent to device=."""
+    from cairo_tpu_torch import analysis
+
+    y = [_library_blocks(16, 2048, s) for s in (1, 2)]
+    c = [_library_blocks(8, 2048, s) for s in (3, 4, 5, 6)]
+    calls = {
+        "block_sad_delta": lambda y, c, kw: analysis.block_sad(y[0], **kw),
+        "block_sad": lambda y, c, kw: analysis.block_sad(y[0], y[1], **kw),
+        "block_mse": lambda y, c, kw: analysis.block_mse(y[0], y[1], **kw),
+        "block_ssd": lambda y, c, kw: analysis.block_ssd(y[0], y[1], **kw),
+        "block_mad": lambda y, c, kw: analysis.block_mad(
+            y[0], c[0], c[1], y[1], c[2], c[3], **kw),
+        "block_mean": lambda y, c, kw: analysis.block_mean(y[0], **kw),
+        "nonzero_block_mean": lambda y, c, kw: analysis.nonzero_block_mean(
+            y[0], **kw),
+        "block_variance": lambda y, c, kw: analysis.block_variance(y[0],
+                                                                   **kw),
+        "block_variance2": lambda y, c, kw: analysis.block_variance2(y[0],
+                                                                     **kw),
+        "block_variance3": lambda y, c, kw: analysis.block_variance3(y[0],
+                                                                     **kw),
+    }
+    ty = [_t(a).to(dev) for a in y]
+    tc = [_t(a).to(dev) for a in c]
+    for name, fn in calls.items():
+        want = fn(y, c, {"device": "cpu"})
+        got = fn(ty, tc, {})
+        assert got.device.type == "cuda" and got.dtype == torch.int32, name
+        _eq(got, want)
+        _eq(fn(y, c, {}), want)          # arrays go to "cuda" by default
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fdct4", "idct4", "fdct16_line",
+                                  "idct16_line", "fdct16", "idct16"])
+def test_library_transforms_card_match_cpu(dev, name):
+    size = 4 if name.endswith("4") else 16
+    x = _library_blocks(size, 4096, 7)
+    if name.endswith("_line"):
+        x = x.reshape(-1, 16)
+    fn = getattr(ops, name)
+    got = fn(_t(x).to(dev))
+    assert got.device.type == "cuda"
+    _eq(got, fn(_t(x)))
+
+
+@pytest.mark.cuda
+def test_reference_engine_anchors_card_conformance(dev):
+    """ConformanceGpuEncoder on the card gives the port's host reference
+    engine's bytes at 176x144, q 4, 16 and 29 (an intra inserted at q16),
+    and GpuDecoder on the card decodes them, on the device path, to
+    Evx1Decoder's RGB."""
+    from cairo_tpu_torch import Evx1Decoder, Evx1Encoder
+
+    for q in (4, 16, 29):
+        frames = synth_frames(176, 144, 3, seed=40 + q)
+        ref, card = Evx1Encoder(), api.ConformanceGpuEncoder(device=dev)
+        rdec, cdec = Evx1Decoder(), api.GpuDecoder(device=dev)
+        for enc in (ref, card):
+            enc.set_quality(q)
+        for i, f in enumerate(frames):
+            if q == 16 and i == 2:
+                ref.insert_intra()
+                card.insert_intra()
+            a, b = ref.encode(f), card.encode(f)
+            assert a == b, f"q{q} frame {i}"
+            np.testing.assert_array_equal(cdec.decode(b), rdec.decode(a))
+        assert cdec.host_frames == 0

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/cairo_tpu_torch/, and neither
 chip_smoke.py nor compare_trees.py, imports jax or cairo_tpu; it imports
-every module and runs both encoders and the decoder with both blocked; no
+every module and runs both encoders, the decoder, the reference engine,
+analysis and the entropy backends with both blocked; no
 CUDA source includes a PyTorch header and nothing builds with torch's
 extension loader; chip_smoke.py fails fast without a card."""
 
@@ -54,7 +55,9 @@ def test_sources_bind_without_torch_headers():
 def test_imports_and_runs_with_jax_blocked(tmp_path):
     """A fresh interpreter with jax and cairo_tpu unimportable imports
     every port module (the conformance path's too) and encodes + decodes
-    two frames with each encoder on the CPU."""
+    two frames with each encoder on the CPU, the conformance chunks and
+    RGB equal to the port's Evx1Encoder's and Evx1Decoder's, and calls
+    analysis and the entropy backends."""
     mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
                   for p in PKG.rglob("*.py") if p.name != "__init__.py")
     code = f"""
@@ -73,8 +76,19 @@ for f in synth_frames(48, 32, 2):
     rgb = dec.decode(enc.encode(f))
     assert np.array_equal(rgb, enc.peek_destination())
 cenc, cdec = ConformanceGpuEncoder(device="cpu"), GpuDecoder(device="cpu")
+from cairo_tpu_torch import Evx1Decoder, Evx1Encoder, analysis
+from cairo_tpu_torch.entropy import backends
+renc, rdec = Evx1Encoder(), Evx1Decoder()
 for f in synth_frames(48, 32, 2):
-    cdec.decode(cenc.encode(f))
+    chunk = cenc.encode(f)
+    assert chunk == renc.encode(f)
+    assert np.array_equal(cdec.decode(chunk), rdec.decode(chunk))
+blocks = np.arange(-512, 512, dtype=np.int16).reshape(4, 16, 16)
+assert int(analysis.block_variance2(blocks, device="cpu")[0]) != 0
+out = backends.BitWriter()
+backends.golomb_encode_values([3, -7, 0], out)
+assert list(backends.golomb_decode_values(
+    backends.BitReader(out.getvalue(), out.bit_count), 3)) == [3, -7, 0]
 assert "jax" not in [m.split(".")[0] for m in sys.modules
                      if sys.modules[m] is not None]
 print("ok")
