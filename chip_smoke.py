@@ -24,13 +24,21 @@ Phases, one line each with the elapsed seconds:
      one tile column; all, no and some copy MBs, q 0 and 31, samples far
      beyond int16, a uint8 q map); CUDA-event times and each kernel's
      device time from a torch.profiler trace, K8's bound and ptxas
-     registers, shared memory and spills;
+     registers, shared memory and spills; K9 subpel_scan against its plain
+     version at 1920x1088 on the arguments K1-K3 give it (smooth content
+     a quarter-pel step past a full-pel shift, so that sub-pel candidates
+     are taken; the windows views into K3's one buffer), at a tile origin,
+     on random vectors, on windows over the whole int16 range with a MAD
+     threshold that lets the copy branch take every lower MAD, with all
+     MBs frozen and on flat planes where every candidate ties, inputs
+     unchanged, with its times, bound and ptxas usage;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
      frame may take the host decode path, every kernel must have been
-     launched, K3 once per reference search (as often as K2) and K8 once
-     per encoded and once per decoded frame;
+     launched, K3 once per reference search (as often as K2), K9 three
+     times per inter frame (once per reference) and K8 once per encoded
+     and once per decoded frame;
   4. CPU against card: 3 frames at 176x144 encoded with device="cpu" and
      on the card give byte-identical chunks;
   2b. the conformance path's kernels against their plain versions at its
@@ -72,8 +80,9 @@ Phases, one line each with the elapsed seconds:
      frames (measure_pipelined); fails unless the chunks and RGB equal the
      loop's, no frame took the host decoder and every kernel of the path
      was launched in the pipelined run (its counts set to 0 just before
-     it); prints both fps (as bench.py counts them: the yield intervals
-     of the measured frames) and the per-stage medians of each run;
+     it), K9 three times per fast inter frame; prints both fps (as
+     bench.py counts them: the yield intervals of the measured frames)
+     and the per-stage medians of each run;
   8. tiled: TiledEncoder and TiledDecoder (gpu/tiled.py) over 1 intra + 4
      inter 1920x1080 frames at q16 whose content moves 9 px a frame
      across the tile edges, in four configurations: 1 tile (each slice
@@ -83,7 +92,8 @@ Phases, one line each with the elapsed seconds:
      CUDA launches); 2 GOPs x 2 tiles (each GOP's stream equals that GOP
      encoded alone); 352x288 over 4 tiles (the card's chunks equal the
      CPU's); fails unless every comparison holds and K1-K4 and K8 were
-     launched in each configuration, K1-K4 with the ring halo; prints the
+     launched in each configuration, K1-K4 with the ring halo, and K9 once
+     per tile and reference of each inter frame; prints the
      per-frame fps of tiled encode and decode at each tile count. Phase 2
      also holds K1-K4 at a tile's halo'd shapes (1088 x (480 + 64) luma)
      against their plain versions, margins zeroed and real;
@@ -117,7 +127,8 @@ and of one conformance chunk through GpuDecoder (the wavefront decode),
 with one labelled range per pipeline stage: host
 and device milliseconds per stage, the port's kernels' device time by
 kernel name, and all kernels' device time against the unprofiled wall
-time of the same work (busy share).
+time of the same work (busy share); for the fast frame, its CUDA launches
+beside the 5,981 it took before K9.
 """
 
 from __future__ import annotations
@@ -455,6 +466,149 @@ def phase_kernels(torch, np, gpu):
     for k, err in phase_kernels_halo(torch, np, gpu, check).items():
         recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], err)
     return recs
+
+
+# references a fast inter frame searches (RING - 1), one K9 launch each
+REFS = 3
+# integer operations per sample of a sub-pel candidate K9 must do: the
+# blend (sum, rounding, truncation, wrap16), |src - blend|, sum and max
+SUBPEL_OPS_PER_SAMPLE = 12
+
+
+def subpel_work(args):
+    """(bytes, operations) K9 must spend on subpel_scan(*args): the
+    windows, source planes and per-MB fields read once, the outputs
+    written once; the blends of the candidates that may be taken (a
+    direction whose block stays in the frame, of an MB not frozen), 2
+    amounts x 384 samples each."""
+    wins, planes, mx, my, _, _, frozen, px, py, x0, width, height, _ = args
+    n = mx.numel()
+    nbytes = (sum(t.numel() * 4 for t in wins + planes) + n * (6 * 4 + 1)
+              + n * (3 * 4 + 4))
+    valid = 0
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            if (di, dj) == (0, 0):
+                continue
+            gx, gy = x0 + px + mx + di, py + my + dj
+            valid += int(((gx >= 0) & (gx <= width - 16) & (gy >= 0)
+                          & (gy <= height - 16) & ~frozen).sum())
+    return nbytes, valid * 2 * 384 * SUBPEL_OPS_PER_SAMPLE
+
+
+def phase_kernels_subpel(torch, np, gpu, H=1088, W=1920):
+    """K9 against its plain version at 1080p on the arguments the fast
+    search gives it (K1-K3 on a smooth ring whose slot 1 the source
+    shows a quarter-pel step past (3, -2), plus noise; the windows are
+    views at offsets into K3's one buffer), at a tile origin, on random
+    vectors and metrics, on windows over the whole int16 range with a
+    MAD threshold so high that the copy branch takes every lower MAD,
+    with all MBs frozen, and on flat planes where every candidate ties;
+    exact. Returns its record (timed on the first input)."""
+    cm, cp = gpu["cuda_motion"], gpu["cuda_pred"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 9)
+    n = (H // 16) * (W // 16)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    px, py = (idx % (W // 16)) * 16, (idx // (W // 16)) * 16
+    shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+    slot = torch.tensor([1], dtype=torch.int32, device=dev)
+
+    def smooth(h, w, lo, hi):
+        yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+        xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+        f = torch.zeros((h, w), device=dev)
+        for fx, fy, ph, pv in rng.uniform(0.05, 0.3, (3, 4)) * [1, 1, 20,
+                                                                  20]:
+            f += torch.sin(fx * xx + ph) * torch.cos(fy * yy + pv)
+        f = (f - f.min()) / (f.max() - f.min())
+        return torch.round(lo + (hi - lo) * f).to(torch.int32)
+
+    def ring_of(lo, hi):
+        return tuple(torch.stack([smooth(*s, lo, hi) for _ in range(4)])
+                     .to(torch.int16) for s in shapes)
+
+    def source(ring):
+        out = []
+        for i, r in enumerate(ring):
+            dx, dy = (3, -2) if i == 0 else (1, -1)
+            a = torch.roll(r[1].to(torch.int32), (-dy, -dx), (0, 1))
+            b = torch.roll(r[1].to(torch.int32), (-dy - 1, -dx - 1), (0, 1))
+            noise = torch.as_tensor(rng.integers(-2, 3, a.shape),
+                                    dtype=torch.int32, device=dev)
+            out.append(((3 * a + b + 2) // 4 + noise).clamp(0, 255)
+                       .contiguous())
+        return tuple(out)
+
+    def searched(ring, src, x0, width, thr):
+        cmax = cm.chroma_max_maps(src[1], src[2], ring[1][1], ring[2][1])
+        mx, my, sad, mad, frozen = cm.dense_select(src[0], ring[0][1], cmax,
+                                                   x0, width, H, thr)
+        return (cp.gather_windows_yuv(ring, slot, mx, my), src, mx, my,
+                sad, mad, frozen, px, py, x0, width, H, thr)
+
+    def drawn(ring, src, thr, frozen_share=0.2, mad0=None):
+        def i32(lo, hi):
+            return torch.as_tensor(rng.integers(lo, hi, n), dtype=torch.int32,
+                                   device=dev)
+        mx, my = i32(-16, 17), i32(-16, 17)
+        sad = i32(0, 20000)
+        mad = i32(0, 12) if mad0 is None else torch.full_like(sad, mad0)
+        frozen = torch.as_tensor(rng.random(n) < frozen_share, device=dev)
+        return (cp.gather_windows_yuv(ring, slot, mx, my), src, mx, my, sad,
+                mad, frozen, px, py, 0, W, H, thr)
+
+    thr = torch.tensor(5, dtype=torch.int32, device=dev)  # q16
+    ring = ring_of(-300, 560)
+    src = source(ring)
+    wide = ring_of(-32768, 32767)
+    flat_ring = tuple(torch.full((4,) + s, 128, dtype=torch.int16,
+                                 device=dev) for s in shapes)
+    flat_src = tuple(torch.full(s, 128, dtype=torch.int32, device=dev)
+                     for s in shapes)
+    flat = drawn(flat_ring, flat_src, thr)
+    flat = flat[:4] + (torch.zeros_like(flat[4]),
+                       torch.zeros_like(flat[5])) + flat[6:]
+    main = searched(ring, src, 0, W, thr)
+    cases = [("main path", main),
+             ("tile x0", searched(ring, src, 64, W + 160, thr)),
+             ("random vectors", drawn(ring, src, thr)),
+             ("int16 range, copy branch", drawn(
+                 wide, source(wide), torch.tensor(1 << 20, dtype=torch.int32,
+                                                  device=dev), mad0=1 << 30)),
+             ("all frozen", drawn(ring, src, thr, frozen_share=1.0)),
+             ("flat ties", flat)]
+    if not main[0][2].storage_offset() or \
+            main[0][0].untyped_storage().data_ptr() != \
+            main[0][2].untyped_storage().data_ptr():
+        fail("K9: the main-path windows are not views into one buffer")
+    err, taken = 0, {}
+    for label, args in cases:
+        inputs = [t.clone() for a in args
+                  for t in (a if isinstance(a, tuple) else (a,))
+                  if torch.is_tensor(t)]
+        got = cm.subpel_scan(*args)
+        torch.cuda.synchronize()
+        want = cm.subpel_scan_plain(*args)
+        err = max(err, compare(torch, f"K9 subpel_scan ({label})",
+                               tuple(got.values()), tuple(want.values())))
+        after = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+                 if torch.is_tensor(t)]
+        if any(not torch.equal(a, b) for a, b in zip(inputs, after)):
+            fail(f"K9 subpel_scan ({label}): an input changed")
+        taken[label] = int(got["sp_pred"].sum())
+    if not taken["main path"] or taken["all frozen"] or taken["flat ties"]:
+        fail(f"K9: MBs that took a sub-pel candidate per case {taken} (some "
+             f"on the main path and none frozen or flat expected)")
+    log(f"K9: equal to the plain version on {', '.join(c[0] for c in cases)}"
+        f"; MBs that took a sub-pel candidate {taken} of {n}")
+    nbytes, ops = subpel_work(main)
+    return dict(
+        ms=cuda_ms(torch, lambda: cm.subpel_scan(*main), 10),
+        device_ms=device_ms(torch, lambda: cm.subpel_scan(*main),
+                            "subpel_scan_kernel"),
+        plain_ms=cuda_ms(torch, lambda: cm.subpel_scan_plain(*main), 3),
+        bytes=nbytes, ops=ops, max_abs_err=err, taken=taken)
 
 
 def phase_kernels_halo(torch, np, gpu, check):
@@ -965,7 +1119,7 @@ def phase_conformance_cpu_vs_card(gpu):
 PIPELINE_PATHS = {
     "fast": ("GpuEncoder", ("chroma_max_maps", "dense_select",
                             "gather_windows", "pred_planes",
-                            "deblock_frame")),
+                            "deblock_frame", "subpel_scan")),
     "conformance": ("ConformanceGpuEncoder", (
         "pred_planes_wide", "inter_search", "wave_pass", "wave_decode",
         "deblock_frame"))}
@@ -1103,6 +1257,10 @@ def phase_pipelined(gpu, smi):
         for name in PIPELINE_PATHS[path][1]:
             if not rec[f"{path}_launches"][name]:
                 fail(f"phase 7: {path} pipelined run never launched {name}")
+        k9 = rec[f"{path}_launches"]["subpel_scan"]
+        if path == "fast" and k9 != REFS * (n - 1):
+            fail(f"phase 7: the fast pipelined run launched K9 {k9} times for "
+                 f"{n - 1} inter frames ({REFS} a frame expected)")
         log(f"phase 7: {path} 1920x1080 q16, {n - 2} measured frames after "
             f"2 on {smi}: encode_many {rec[f'{path}_encode_fps']:.3f} fps "
             f"(loop {rec[f'{path}_encode_loop_fps']:.3f}), decode_many "
@@ -1204,6 +1362,10 @@ def phase_main(torch, np, gpu):
         fail(f"main path: {launches['gather_windows']} K3 launches for "
              f"{launches['dense_select']} reference searches (one three-plane "
              f"launch each expected)")
+    if launches["subpel_scan"] != REFS * (len(frames) - 1):
+        fail(f"main path: {launches['subpel_scan']} K9 launches for "
+             f"{len(frames) - 1} fast inter frames ({REFS} a frame, one per "
+             f"reference, expected)")
     mse = float(np.mean([np.mean((o.astype(np.float64) - f) ** 2)
                          for o, f in zip(outs, frames)]))
     summary = dict(
@@ -1290,9 +1452,10 @@ def phase_tiled(torch, np, gpu, smi):
                 for k in counts:
                     counts[k] = 0
 
-    def launched(label):
-        """Fails unless K1-K4 (with the halo) and K8 launched since reset();
-        adds the counts to the phase's."""
+    def launched(label, searches):
+        """Fails unless K1-K4 (with the halo) and K8 launched since reset(),
+        and K9 once per tile of each inter frame's `searches` reference
+        searches; adds the counts to the phase's."""
         counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
         halo = {k: v for mod in mods[:2]
                 for k, v in mod.HALO_LAUNCHES.items()}
@@ -1303,9 +1466,14 @@ def phase_tiled(torch, np, gpu, smi):
             if halo[name] == 0:
                 fail(f"phase 8 ({label}): {name} never launched with the "
                      f"ring halo")
+        if counts["subpel_scan"] != searches:
+            fail(f"phase 8 ({label}): K9 launched {counts['subpel_scan']} "
+                 f"times for {searches} tile reference searches (one each "
+                 f"expected)")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        return {k: counts[k] for k in TILED_HALO_KERNELS + ("deblock_frame",)}
+        return {k: counts[k] for k in TILED_HALO_KERNELS
+                + ("deblock_frame", "subpel_scan")}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -1344,7 +1512,7 @@ def phase_tiled(torch, np, gpu, smi):
         if not np.array_equal(rgb, enc.recon_rgb()):
             fail(f"phase 8: 1-tile RGB of frame {i} differs from recon_rgb()")
     summary["1_tile"] = dict(
-        launches=launched("1 tile"), inter_encode_fps=fps(enc_s[1:]),
+        launches=launched("1 tile", REFS * 4), inter_encode_fps=fps(enc_s[1:]),
         inter_decode_fps=fps(dec_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s],
         decode_ms=[round(x * 1e3, 1) for x in dec_s])
@@ -1378,7 +1546,8 @@ def phase_tiled(torch, np, gpu, smi):
         fail("phase 8: 4-tile RGB of the traced frame differs from "
              "recon_rgb()")
     summary["4_tiles"] = dict(
-        launches=launched("4 tiles"), inter_encode_fps=fps(enc_s[1:]),
+        launches=launched("4 tiles", REFS * 5 * 4),
+        inter_encode_fps=fps(enc_s[1:]),
         inter_decode_fps=fps(dec_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s],
         decode_ms=[round(x * 1e3, 1) for x in dec_s],
@@ -1402,7 +1571,7 @@ def phase_tiled(torch, np, gpu, smi):
         batched.append(chunks)
         enc_s.append(s_enc)
     summary["2_gops_x_2_tiles"] = dict(
-        launches=launched("2 GOPs x 2 tiles"),
+        launches=launched("2 GOPs x 2 tiles", REFS * 4 * 2 * 2),
         inter_batch_fps=fps(enc_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s])
     reset()
@@ -1413,7 +1582,7 @@ def phase_tiled(torch, np, gpu, smi):
             if alone.encode(f) != batched[i][g]:
                 fail(f"phase 8: GOP {g} frame {i} differs from the GOP "
                      f"encoded alone")
-    launched("each GOP alone, 2 tiles")
+    launched("each GOP alone, 2 tiles", REFS * 4 * 2 * 2)
 
     # ---- 352x288 over 4 tiles: card against CPU
     reset()
@@ -1426,7 +1595,8 @@ def phase_tiled(torch, np, gpu, smi):
         if cpu.encode(f) != card.encode(f):
             fail(f"phase 8: 352x288 4-tile chunks of frame {i} differ "
                  f"between the CPU and the card")
-    summary["352x288_4_tiles"] = dict(launches=launched("352x288, 4 tiles"))
+    summary["352x288_4_tiles"] = dict(
+        launches=launched("352x288, 4 tiles", REFS * 2 * 4))
     summary["seconds"] = time.perf_counter() - t_phase
     return total, summary
 
@@ -1700,7 +1870,8 @@ PROFILE_STAGES = (
     ("native", "yuv5d_wire_to_rgb"), ("wire", "unpack_yuv5d"),
     ("wire", "pack_encode_wire"), ("wire", "pack_yuv5d_wire"),
     ("motion", "inter_search"), ("cuda_motion", "chroma_max_maps"),
-    ("cuda_motion", "dense_select"), ("cuda_pred", "gather_windows_yuv"),
+    ("cuda_motion", "dense_select"), ("cuda_motion", "subpel_scan"),
+    ("cuda_pred", "gather_windows_yuv"),
     ("cuda_pred", "pred_planes"), ("engine", "quantize_planes"),
     ("engine", "reconstruct"), ("cuda_deblock", "deblock_frame"),
     ("ops", "fdct8"), ("cuda_inter", "inter_search"),
@@ -1710,13 +1881,17 @@ PROFILE_STAGES = (
 PORT_KERNELS = ("chroma_max_kernel", "dense_select_kernel",
                 "gather_windows_kernel", "pred_planes_kernel",
                 "inter_search_kernel", "wave_decode_kernel", "wave_kernel",
-                "deblock_kernel")
+                "deblock_kernel", "subpel_scan_kernel")
+# CUDA launches of a traced fast inter frame (encode + decode, 1080p q16)
+# before the sub-pel scan became one kernel (K9), on NVIDIA H100 80GB HBM3
+FAST_FRAME_LAUNCHES_BEFORE_K9 = 5981
 
 
-def profile_frame(torch, smi, label, warm, timed, traced):
+def profile_frame(torch, smi, label, warm, timed, traced, before=None):
     """Prints host and device time per labelled stage of `traced()` and
     the device's busy share against the unprofiled wall time of
-    `timed()`, after `warm()`; each runs the same kind of work."""
+    `timed()`, after `warm()`; each runs the same kind of work. `before`:
+    an earlier count of the frame's launches to print beside this one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1747,6 +1922,9 @@ def profile_frame(torch, smi, label, warm, timed, traced):
         f"in {sum(e.count for e in kernels)} launches, so the device is busy "
         f"{100 * busy / wall:.1f}% and idle {100 - 100 * busy / wall:.1f}% "
         f"of the unprofiled wall")
+    if before is not None:
+        log(f"profile: {label}: {sum(e.count for e in kernels)} CUDA launches "
+            f"against {before} before K9")
     log("profile: stage | host ms (profiled) | device ms of the ATen "
         "kernels inside it | calls")
     rows = sorted((e for e in events if e.key.startswith("stage.")
@@ -1805,7 +1983,8 @@ def phase_profile(torch, gpu, smi):
     profile_frame(
         torch, smi, "one 1920x1080 q16 inter frame encoded + decoded",
         lambda: [fast(enc, dec, f) for f in frames[:2]],
-        lambda: fast(enc, dec, frames[2]), lambda: fast(enc, dec, frames[3]))
+        lambda: fast(enc, dec, frames[2]), lambda: fast(enc, dec, frames[3]),
+        before=FAST_FRAME_LAUNCHES_BEFORE_K9)
 
     chunks = []
 
@@ -1868,7 +2047,7 @@ def main():
         f"library in {secs['native_s']:.1f}s")
     log("kernels: K1 chroma_max_maps, K2 dense_select, K3 gather_windows, "
         "K4 pred_planes, K5 inter_search, K6 wave_pass, K7 wave_decode, "
-        "K8 deblock_frame")
+        "K8 deblock_frame, K9 subpel_scan")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gpu, smi)
         faulthandler.cancel_dump_traceback_later()
@@ -1877,6 +2056,7 @@ def main():
     usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
     recs = phase_kernels(torch, np, gpu)
     recs["K8"] = phase_kernels_deblock(torch, gpu)
+    recs["K9"] = phase_kernels_subpel(torch, np, gpu)
     for k, r in recs.items():
         dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
             else ""
@@ -1890,6 +2070,15 @@ def main():
             f"kernel alone {k3[label + '_device_ms']:.4f} ms (plain "
             f"{k3[label + '_plain_ms']:.3f} ms), bound "
             f"{k3[label + '_bound_ms']:.4f} ms (bytes) on {smi}")
+    k9 = recs["K9"]
+    if "subpel_scan_kernel" not in usage:
+        fail("ptxas reported nothing for subpel_scan_kernel")
+    log(f"phase 2: K9 at 1920x1088 ({k9['bytes'] / 1e6:.1f} MB, "
+        f"{k9['ops'] / 1e9:.3f} G integer operations): {k9['ms']:.4f} ms, "
+        f"kernel alone {k9['device_ms']:.4f} ms (plain {k9['plain_ms']:.3f} "
+        f"ms), bound {k9['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) / "
+        f"{k9['ops'] / INT_OPS_PER_S * 1e3:.4f} ms (operations); "
+        f"{usage['subpel_scan_kernel']} on {smi}")
     k8 = recs["K8"]
     if "deblock_kernel" not in usage:
         fail("ptxas reported nothing for deblock_kernel")
@@ -1938,7 +2127,7 @@ def main():
                   "gather_windows_kernel<0>", "gather_windows_kernel<1>",
                   "gather_windows_kernel<2>", "pred_planes_kernel<17,9>",
                   "pred_planes_kernel<33,17>", "inter_search_kernel",
-                  "wave_kernel", "wave_decode_kernel"):
+                  "wave_kernel", "wave_decode_kernel", "subpel_scan_kernel"):
         if kname not in usage:
             fail(f"ptxas reported nothing for {kname}")
         log(f"phase 2b: {kname}: {usage[kname]}")
@@ -2025,13 +2214,18 @@ def main():
         # no Pallas kernel: the XLA fori_loop of the in-loop deblock
         "K8": ("deblock_frame", "src/cairo_tpu_torch/gpu/csrc/deblock.cu",
                "src/cairo_tpu/tpu/deblock.py:143"),
+        # no Pallas kernel: the XLA lax.scan of the fast search's sub-pel
+        # refinement
+        "K9": ("subpel_scan", "src/cairo_tpu_torch/gpu/csrc/subpel.cu",
+               "src/cairo_tpu/tpu/motion.py:476"),
     }
     instances = dict(K1="chroma_max_kernel", K2="dense_select_kernel",
                      K3="gather_windows_kernel<2>",
                      K4="pred_planes_kernel<17,9>",
                      K4w="pred_planes_kernel<33,17>",
                      K5="inter_search_kernel", K6="wave_kernel",
-                     K7="wave_decode_kernel", K8="deblock_kernel")
+                     K7="wave_decode_kernel", K8="deblock_kernel",
+                     K9="subpel_scan_kernel")
     kernels = []
     for k, (name, source, replaces) in meta.items():
         r = recs[k]
@@ -2053,9 +2247,11 @@ def main():
         # K7's intra frame beside its inter frame
         kernels[-1].update({k: v for k, v in r.items()
                             if k.startswith(("luma_", "chroma_", "intra_"))})
+        if k == "K9":
+            kernels[-1]["taken_by_case"] = r["taken"]
     # K8's launches in phase 3 (fast encode and decode) and phase 5
     # (conformance encode and wavefront decode)
-    kernels[-1]["launches_by_path"] = k8_by_path
+    kernels[list(meta).index("K8")]["launches_by_path"] = k8_by_path
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
-"""Dense fast-mode motion search kernels K1 and K2 (counterpart of
-cairo_tpu/tpu/pallas_motion.py), with their plain PyTorch versions.
+"""Fast-mode motion search kernels K1 and K2 (counterpart of
+cairo_tpu/tpu/pallas_motion.py) and K9, with their plain PyTorch
+versions.
 
 Dispatch, one rule per wrapper: a CPU tensor takes the plain version; a
-CUDA tensor launches the kernel of csrc/motion.cu or raises. Each launch
-adds one to LAUNCHES[name].
+CUDA tensor launches the kernel of csrc/motion.cu (K1, K2) or
+csrc/subpel.cu (K9) or raises. Each launch adds one to LAUNCHES[name].
 
   * chroma_max_maps (K1) replaces pallas_motion.chroma_max_maps
     (pallas_motion.py:314); plain version translated from
@@ -11,6 +12,13 @@ adds one to LAUNCHES[name].
   * dense_select (K2) replaces pallas_motion.dense_select
     (pallas_motion.py:212); plain version translated from
     motion._dense_select (motion.py:269).
+  * subpel_scan (K9) replaces no Pallas kernel: it is the sub-pel
+    refinement of the fast search, the lax.scan of sp_body over the 8
+    neighbour directions (motion.py:476-521) that XLA fuses into a few
+    kernels on the TPU; its plain version is that scan as torch ops.
+    The sub-pel fold rules (SP_DIRS, accept_subpel, fold_subpel) live
+    here too, since motion.inter_search_exact and cuda_wave's plain K6
+    fold their sub-pel candidates the same way.
 
 The port's chroma-map layout is (hb, wb, 17*17), offset index
 (cdy+8)*17 + (cdx+8): only K2 reads it. A reference carries a margin of
@@ -32,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import tables
-from . import _build
+from ..blocktypes import sp_dir_to_index
+from . import _build, ops
 
 MB = tables.MACROBLOCK_SIZE
 R = tables.MOTION_SEARCH_RADIUS     # 16
@@ -42,11 +51,12 @@ CENTER = R * SPAN + R
 CR = R // 2                         # 8
 CSPAN = 2 * CR + 1                  # 17
 CNOFF = CSPAN * CSPAN               # 289
+SAD_THRESHOLD = tables.MOTION_SAD_THRESHOLD
 I32 = torch.int32
 INT32_MAX = 0x7FFFFFFF
 _NONE = torch.iinfo(torch.int64).max
 
-LAUNCHES = {"chroma_max_maps": 0, "dense_select": 0}
+LAUNCHES = {"chroma_max_maps": 0, "dense_select": 0, "subpel_scan": 0}
 HALO_LAUNCHES = {"chroma_max_maps": 0, "dense_select": 0}
 
 
@@ -216,3 +226,159 @@ def dense_select(src_y, ref_y, cmax, x0, width, height, mad_thr,
     if margin:
         HALO_LAUNCHES["dense_select"] += 1
     return mx, my, sad, mad, frozen
+
+
+# ----------------------------------------------------------------- K9
+
+# (di, dj, sp index) in the reference's evaluation order
+SP_DIRS = [(di, dj, sp_dir_to_index(di, dj))
+           for dj in (-1, 0, 1) for di in (-1, 0, 1) if (di, dj) != (0, 0)]
+
+
+def block_sad(src_y, cand_y):
+    return (src_y - cand_y).abs().sum(dim=(1, 2), dtype=I32)
+
+
+def block_mad(src, cand):
+    m = [(s - c).abs().amax(dim=(1, 2)) for s, c in zip(src, cand)]
+    return torch.maximum(m[0], torch.maximum(m[1], m[2])).to(I32)
+
+
+def accept_subpel(c_sad, c_mad, sad, mad, mad_thr):
+    """Sub-pel acceptance (motion.cpp:277-352): in the copy branch a
+    strictly lower MAD; otherwise a strictly lower SAD under the
+    threshold, or a MAD below mad_thr."""
+    return torch.where(mad < mad_thr, c_mad < mad,
+                       ((c_sad < sad) & (c_sad < SAD_THRESHOLD))
+                       | (c_mad < mad_thr))
+
+
+def fold_subpel(sad, mad, cands, mad_thr):
+    """Folds the sub-pel candidates in the reference's order (SP_DIRS,
+    half before quarter). cands yields (ok, amount, sp_index, c_sad,
+    c_mad) per candidate. Returns (sad, mad, sp_pred, sp_amount,
+    sp_index)."""
+    sp_pred = torch.zeros(sad.shape, dtype=torch.bool, device=sad.device)
+    sp_amount = torch.zeros_like(sp_pred)
+    sp_index = torch.zeros(sad.shape, dtype=I32, device=sad.device)
+    for ok, amount, idx, c_sad, c_mad in cands:
+        acc = ok & accept_subpel(c_sad, c_mad, sad, mad, mad_thr)
+        sp_pred = sp_pred | acc
+        sp_amount = torch.where(acc, amount, sp_amount)
+        sp_index = torch.where(acc, idx, sp_index)
+        sad = torch.where(acc, c_sad, sad)
+        mad = torch.where(acc, c_mad, mad)
+    return sad, mad, sp_pred, sp_amount, sp_index
+
+
+def _chroma_slice(win, cdx, cdy):
+    """(N, 10, 10) windows -> (N, 8, 8) at per-MB shifts cdx/cdy in -1..1."""
+    rows = [win[:, i:i + 8, :] for i in range(3)]
+    r = torch.where((cdy == -1)[:, None, None], rows[0],
+                    torch.where((cdy == 0)[:, None, None], rows[1], rows[2]))
+    cols = [r[:, :, i:i + 8] for i in range(3)]
+    return torch.where((cdx == -1)[:, None, None], cols[0],
+                       torch.where((cdx == 0)[:, None, None], cols[1],
+                                   cols[2]))
+
+
+def _src_blocks(src_planes, px, py):
+    """Per-MB source blocks (Y (N,16,16), U, V (N,8,8)) of the planes at
+    (px, py) (px/2, py/2 in chroma)."""
+    out = []
+    for plane, size, x, y in ((src_planes[0], MB, px, py),
+                              (src_planes[1], MB // 2, px >> 1, py >> 1),
+                              (src_planes[2], MB // 2, px >> 1, py >> 1)):
+        r = torch.arange(size, device=px.device)
+        out.append(plane[(y.long()[:, None] + r)[:, :, None],
+                         (x.long()[:, None] + r)[:, None, :]])
+    return tuple(out)
+
+
+def subpel_scan_plain(wins, src_planes, mx, my, best_sad, best_mad, frozen,
+                      px, py, x0, width, height, mad_thr):
+    ywin, uwin, vwin = wins
+    src = _src_blocks(src_planes, px, py)
+    best_y = ywin[:, 1:17, 1:17]
+    best_u = uwin[:, 1:9, 1:9]
+    best_v = vwin[:, 1:9, 1:9]
+
+    def cands():
+        for di, dj, idx in SP_DIRS:
+            tmx, tmy = mx + di, my + dj
+            valid_sp = ((x0 + px + tmx >= 0) & (x0 + px + tmx <= width - MB)
+                        & (py + tmy >= 0) & (py + tmy <= height - MB)
+                        & ~frozen)
+            test_y = ywin[:, 1 + dj:1 + dj + MB, 1 + di:1 + di + MB]
+            # the chroma neighbour's shift depends on the parity of mx/my
+            cdx = ((mx + di) >> 1) - (mx >> 1)
+            cdy = ((my + dj) >> 1) - (my >> 1)
+            test_u = _chroma_slice(uwin, cdx, cdy)
+            test_v = _chroma_slice(vwin, cdx, cdy)
+            for amount, lerp in ((False, ops.lerp_half),
+                                 (True, ops.lerp_quarter)):
+                cy_ = lerp(best_y, test_y)
+                yield (valid_sp, amount, idx, block_sad(src[0], cy_),
+                       block_mad(src, (cy_, lerp(best_u, test_u),
+                                       lerp(best_v, test_v))))
+
+    sad, mad, sp_pred, sp_amount, sp_index = fold_subpel(
+        best_sad, best_mad, cands(), mad_thr)
+    return dict(sad=sad, mad=mad,
+                is_motion=(mx != 0) | (my != 0) | sp_pred,
+                is_copy=mad < mad_thr, sp_pred=sp_pred,
+                sp_amount=sp_amount, sp_index=sp_index)
+
+
+def subpel_scan(wins, src_planes, mx, my, best_sad, best_mad, frozen, px,
+                py, x0, width, height, mad_thr):
+    """The fast search's sub-pel refinement of every MB against one
+    reference (motion.py:466-527): the 8 directions of SP_DIRS, each a
+    half- then a quarter-pel blend of the full-pel best block with its
+    neighbour, folded in that order from K2's best. Returns the dict
+    sad, mad (int32), is_motion, is_copy, sp_pred, sp_amount (bool),
+    sp_index (int32).
+
+    wins: K3's (ywin (N,18,18), uwin, vwin (N,10,10)) int32 windows
+    around the full-pel best, values in int16 range (the ring is int16);
+    src_planes: (y (H,W), u, v (H/2,W/2)) int32 planes, values in int16
+    range, read at each MB's (px, py); mx, my, best_sad, best_mad (int32)
+    and frozen (bool) from K2; px, py: (N,) int32 MB positions within the
+    planes (the MB grid, raster order); x0, width, height: the tile's
+    origin and the frame the candidates must stay in; mad_thr: int32
+    scalar tensor, read on the device."""
+    if mx.device.type == "cpu":
+        return subpel_scan_plain(wins, src_planes, mx, my, best_sad,
+                                 best_mad, frozen, px, py, x0, width, height,
+                                 mad_thr)
+    h, w = src_planes[0].shape
+    if h % MB or w % MB:
+        raise ValueError("subpel_scan: plane dims must be multiples of 16")
+    n = (h // MB) * (w // MB)
+    dev = mx.device
+    thr = torch.as_tensor(mad_thr, dtype=I32, device=dev).reshape(1)
+    for t, name, shape in ((wins[0], "ywin", (n, MB + 2, MB + 2)),
+                           (wins[1], "uwin", (n, MB // 2 + 2, MB // 2 + 2)),
+                           (wins[2], "vwin", (n, MB // 2 + 2, MB // 2 + 2)),
+                           (src_planes[0], "src_y", (h, w)),
+                           (src_planes[1], "src_u", (h // 2, w // 2)),
+                           (src_planes[2], "src_v", (h // 2, w // 2)),
+                           (mx, "mx", (n,)), (my, "my", (n,)),
+                           (best_sad, "best_sad", (n,)),
+                           (best_mad, "best_mad", (n,)),
+                           (px, "px", (n,)), (py, "py", (n,)),
+                           (thr, "mad_thr", (1,))):
+        _build.check(t, name, I32, shape)
+    _build.check(frozen, "frozen", torch.bool, (n,))
+    sad, mad, sp_index = torch.empty((3, n), dtype=I32, device=dev).unbind(0)
+    flags = torch.empty((4, n), dtype=torch.bool, device=dev)
+    sp_pred, sp_amount, is_motion, is_copy = flags.unbind(0)
+    fn = _build.kernel_fn("cairo_subpel_scan", "ppppppppppppppiiiiipppppppp")
+    _build.launch(fn, dev, *(t.data_ptr() for t in (
+        *wins, *src_planes, mx, my, best_sad, best_mad, frozen, px, py,
+        thr)), n, w, int(x0), int(width), int(height),
+                  *(t.data_ptr() for t in (sad, mad, sp_index, sp_pred,
+                                           sp_amount, is_motion, is_copy)))
+    LAUNCHES["subpel_scan"] += 1
+    return dict(sad=sad, mad=mad, is_motion=is_motion, is_copy=is_copy,
+                sp_pred=sp_pred, sp_amount=sp_amount, sp_index=sp_index)

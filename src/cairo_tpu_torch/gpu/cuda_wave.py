@@ -29,8 +29,8 @@ import torch.nn.functional as F
 
 from .. import tables
 from . import _build, cuda_inter, engine, extract, ops
-from .motion import INT32_MAX, SP_DIRS, fold_full, fold_subpel, mad_k, \
-    merge_descs, sad_k
+from .cuda_motion import SP_DIRS, fold_subpel
+from .motion import INT32_MAX, fold_full, mad_k, merge_descs, sad_k
 
 MB = tables.MACROBLOCK_SIZE
 # An MB's causal window: luma x in [px + WIN_X[0], px + WIN_X[1]) and y in

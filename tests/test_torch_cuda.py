@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the CUDA kernels K1-K8 (K4 at both pad
+"""Card-only tests of the port: the CUDA kernels K1-K9 (K4 at both pad
 sets; K1-K4 also with a tile's reference margin and ring halo) against
 their plain versions, and the fast-mode and conformance encoders, the
 wavefront decode and the tiled encoder and decoder on the card against
@@ -1059,3 +1059,166 @@ def test_reference_engine_anchors_card_conformance(dev):
             assert a == b, f"q{q} frame {i}"
             np.testing.assert_array_equal(cdec.decode(b), rdec.decode(a))
         assert cdec.host_frames == 0
+
+
+# ---- K9 subpel_scan
+
+SUBPEL_FIELDS = ("sad", "mad", "is_motion", "is_copy", "sp_pred",
+                 "sp_amount", "sp_index")
+
+
+def _smooth_planes(rng, shape, lo, hi):
+    """Smooth random planes of `shape` (slots first) in [lo, hi]: their
+    sub-pel blends predict fractional shifts of them well."""
+    yy, xx = np.mgrid[0:shape[-2], 0:shape[-1]]
+    out = np.zeros(shape)
+    for plane in out.reshape(-1, *shape[-2:]):
+        for _ in range(3):
+            fx, fy = rng.uniform(0.05, 0.3, 2)
+            px, py = rng.uniform(0, 2 * np.pi, 2)
+            plane += np.sin(fx * xx + px) * np.cos(fy * yy + py)
+        plane -= plane.min()
+        plane *= (hi - lo) / max(plane.max(), 1e-9)
+    return np.rint(out + lo).astype(np.int64)
+
+
+def _subpel_args(dev, rng, h, w, *, kind="search", lo=-300, hi=560, x0=0,
+                 full_width=None, thr=5, mad0=None):
+    """K9's arguments as motion.inter_search gives them: K3's windows of
+    one reference (views at offsets into one buffer) of a smooth ring in
+    [lo, hi], the source a quarter-pel shift of its slot 1 by (3, -2)
+    plus noise, clipped to 0..255; the windows around K2's choice (kind
+    "search"), or around random vectors with random best SAD/MAD and a
+    fifth of the MBs frozen ("random"; "frozen": all of them; "flat": a
+    constant ring and source, so that every candidate ties in the copy
+    branch). mad0: the best MAD of every MB for the random kinds."""
+    n = (h // 16) * (w // 16)
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    if kind == "flat":
+        ring = [np.full((RING,) + s, 128) for s in shapes]
+        src = [np.full(s, 128) for s in shapes]
+    else:
+        ring = [_smooth_planes(rng, (RING,) + s, lo, hi) for s in shapes]
+        src = []
+        for i, r in enumerate(ring):
+            dx, dy = (3, -2) if i == 0 else (1, -1)
+            a = np.roll(r[1], (-dy, -dx), (0, 1))
+            b = np.roll(r[1], (-dy - 1, -dx - 1), (0, 1))
+            src.append(np.clip((3 * a + b + 2) // 4
+                               + rng.integers(-2, 3, a.shape), 0, 255))
+    ring = [_t(r, torch.int16).to(dev) for r in ring]
+    src = [_t(p.astype(np.int32)).to(dev) for p in src]
+    slot = torch.tensor([1], dtype=torch.int32, device=dev)
+    width = full_width if full_width is not None else w
+    mad_thr = torch.tensor(thr, dtype=torch.int32, device=dev)
+    if kind == "search":
+        cmax = cuda_motion.chroma_max_maps(src[1], src[2], ring[1][1],
+                                           ring[2][1])
+        mx, my, sad, mad, frozen = cuda_motion.dense_select(
+            src[0], ring[0][1], cmax, x0, width, h, mad_thr)
+    else:
+        def i32(lo_, hi_):
+            return _t(rng.integers(lo_, hi_, n).astype(np.int32)).to(dev)
+        mx, my = i32(-16, 17), i32(-16, 17)
+        sad, mad = i32(0, 20000), i32(0, 12)
+        frozen = _t(rng.random(n) < (1.0 if kind == "frozen" else 0.2)
+                    ).to(dev)
+        if kind == "flat":      # the flat content's own full-pel metrics
+            sad, mad = torch.zeros_like(sad), torch.zeros_like(mad)
+        if mad0 is not None:
+            mad = torch.full_like(mad, mad0)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    px, py = (idx % (w // 16)) * 16, (idx // (w // 16)) * 16
+    wins = cuda_pred.gather_windows_yuv(ring, slot, mx, my)
+    return (wins, tuple(src), mx, my, sad, mad, frozen, px, py, x0, width,
+            h, mad_thr)
+
+
+def _check_subpel(args):
+    """K9 against its plain version on the same card tensors, exact; the
+    inputs unchanged and one launch counted. Returns the kernel's dict."""
+    tensors = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+               if torch.is_tensor(t)]
+    before = [t.clone() for t in tensors]
+    launches = cuda_motion.LAUNCHES["subpel_scan"]
+    got = cuda_motion.subpel_scan(*args)
+    assert cuda_motion.LAUNCHES["subpel_scan"] == launches + 1
+    want = cuda_motion.subpel_scan_plain(*args)
+    assert tuple(got) == SUBPEL_FIELDS
+    for k in SUBPEL_FIELDS:
+        assert got[k].dtype == want[k].dtype and got[k].is_cuda, k
+        _eq(got[k], want[k])
+    for t, b in zip(tensors, before):
+        _eq(t, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1088, 1920), (16, 16), (16, 112),
+                                  (112, 16), (48, 80)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["search", "random"])
+def test_subpel_scan_matches_plain(dev, size, kind):
+    """At the 1080p grid, one MB, a 1 x 7 and a 7 x 1 grid and 15 MBs
+    (neither a multiple of the kernel's 4 MBs a block), on windows read
+    as views at offsets into K3's one buffer."""
+    args = _subpel_args(dev, np.random.default_rng(size[0] + size[1]),
+                        *size, kind=kind)
+    wins = args[0]
+    assert wins[1].storage_offset() > 0 and wins[2].storage_offset() > 0
+    assert wins[0].untyped_storage().data_ptr() == \
+        wins[2].untyped_storage().data_ptr()
+    got = _check_subpel(args)
+    if size == (1088, 1920):
+        assert got["sp_pred"].any() and not got["sp_pred"].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,lo,hi,thr", [
+    ("random", -32768, 32768, 5), ("random", -32768, 32768, 1 << 20),
+    ("search", -32768, 32768, 5), ("frozen", -300, 560, 5),
+    ("flat", 0, 0, 5)])
+def test_subpel_scan_edge_inputs(dev, kind, lo, hi, thr):
+    """Windows over the whole int16 range (negatives: round_out and
+    wrap16), at a MAD threshold so high that the copy branch takes every
+    candidate of lower MAD, from a best MAD of 2^30, so that the outputs
+    show the candidates' metrics; all MBs frozen (nothing taken), and
+    flat content where every candidate ties in the copy branch (nothing
+    taken either)."""
+    args = _subpel_args(dev, np.random.default_rng(91), 96, 160, kind=kind,
+                        lo=lo, hi=hi, thr=thr,
+                        mad0=1 << 30 if thr > 5 else None)
+    got = _check_subpel(args)
+    if kind in ("frozen", "flat"):
+        assert not got["sp_pred"].any()
+    if thr > 5:   # most: some edge MBs have no candidate in the frame
+        assert int(got["sp_pred"].sum()) > int((~args[6]).sum()) // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x0,full_width", [(0, 640), (32, 160), (480, 1920)])
+def test_subpel_scan_at_tile_origins(dev, x0, full_width):
+    for kind in ("search", "random"):
+        _check_subpel(_subpel_args(dev, np.random.default_rng(x0), 96, 160,
+                                   kind=kind, x0=x0, full_width=full_width))
+
+
+@pytest.mark.cuda
+def test_subpel_scan_checks_its_arguments(dev):
+    args = list(_subpel_args(dev, np.random.default_rng(3), 48, 80))
+    bad = [
+        (0, (args[0][0].to(torch.int16),) + args[0][1:]),
+        (0, (args[0][0][:-1],) + args[0][1:]),
+        (1, (args[1][0][:, :64],) + args[1][1:]),
+        (2, args[2].to(torch.int64)),
+        (6, args[6].to(torch.int32)),
+        (3, args[3][:-1]),
+        (7, args[7][:-1]),
+    ]
+    launches = cuda_motion.LAUNCHES["subpel_scan"]
+    for i, value in bad:
+        call = list(args)
+        call[i] = value
+        with pytest.raises(ValueError):
+            cuda_motion.subpel_scan(*call)
+    assert cuda_motion.LAUNCHES["subpel_scan"] == launches
