@@ -31,14 +31,24 @@ Phases, one line each with the elapsed seconds:
      on random vectors, on windows over the whole int16 range with a MAD
      threshold that lets the copy branch take every lower MAD, with all
      MBs frozen and on flat planes where every candidate ties, inputs
-     unchanged, with its times, bound and ptxas usage;
+     unchanged, with its times, bound and ptxas usage; K10 encode_tail
+     and K11 decode_tail against their plain versions at 1920x1088 on the
+     arguments the main path gives them (GpuEncoder and GpuDecoder on an
+     intra and an inter frame, each call's arguments kept) and on edge
+     inputs (residuals at 32767, -32767 and 32768 at q 1, full-scale
+     residuals whose variance sums wrap int32 at q 31, adaptive QP off,
+     every MB a copy; K11 without the carry, with the residual blocks K7
+     reads and on int16-range coefficients), each twice with identical
+     outputs and its inputs unchanged, with their times, bounds and
+     ptxas usage;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
      frame may take the host decode path, every kernel must have been
      launched, K3 once per reference search (as often as K2), K9 three
-     times per inter frame (once per reference) and K8 once per encoded
-     and once per decoded frame;
+     times per inter frame (once per reference), K8 once per encoded and
+     once per decoded frame, K10 once per encoded and K11 once per
+     decoded frame;
   4. CPU against card: 3 frames at 176x144 encoded with device="cpu" and
      on the card give byte-identical chunks;
   2b. the conformance path's kernels against their plain versions at its
@@ -68,7 +78,9 @@ Phases, one line each with the elapsed seconds:
      reconstruction and the native sequential C++ decoder's output, K4 at
      33/17, K5, K6 and K7 must each have been launched (K6 once per frame,
      K7 once per decode frame with active waves, K8 once per encoded and
-     once per decoded frame) and K7 must have rebuilt intra-motion blocks;
+     once per decoded frame, K11 once per decoded frame, K10 never: the
+     conformance encoder's tail is K6's) and K7 must have rebuilt
+     intra-motion blocks;
      prints the decode fps
      and the waves and members per frame;
   6. CPU against card, conformance: 3 frames at 176x144 at q 4, 16 and 29
@@ -80,9 +92,10 @@ Phases, one line each with the elapsed seconds:
      frames (measure_pipelined); fails unless the chunks and RGB equal the
      loop's, no frame took the host decoder and every kernel of the path
      was launched in the pipelined run (its counts set to 0 just before
-     it), K9 three times per fast inter frame; prints both fps (as
-     bench.py counts them: the yield intervals of the measured frames)
-     and the per-stage medians of each run;
+     it), K9 three times per fast inter frame, K10 once per fast encoded
+     frame and K11 once per decoded frame of either path; prints both fps
+     (as bench.py counts them: the yield intervals of the measured
+     frames) and the per-stage medians of each run;
   8. tiled: TiledEncoder and TiledDecoder (gpu/tiled.py) over 1 intra + 4
      inter 1920x1080 frames at q16 whose content moves 9 px a frame
      across the tile edges, in four configurations: 1 tile (each slice
@@ -92,8 +105,9 @@ Phases, one line each with the elapsed seconds:
      CUDA launches); 2 GOPs x 2 tiles (each GOP's stream equals that GOP
      encoded alone); 352x288 over 4 tiles (the card's chunks equal the
      CPU's); fails unless every comparison holds and K1-K4 and K8 were
-     launched in each configuration, K1-K4 with the ring halo, and K9 once
-     per tile and reference of each inter frame; prints the
+     launched in each configuration, K1-K4 with the ring halo, K9 once
+     per tile and reference of each inter frame, K10 once per tile of each
+     encoded frame and K11 once per tile of each decoded one; prints the
      per-frame fps of tiled encode and decode at each tile count. Phase 2
      also holds K1-K4 at a tile's halo'd shapes (1088 x (480 + 64) luma)
      against their plain versions, margins zeroed and real;
@@ -111,8 +125,8 @@ Phases, one line each with the elapsed seconds:
      round-trips 10,000 values, and those that share the ABAC coder with
      the slice codec write its writers' bits; a `library {json}` line.
 The line before the last is a JSON object with each kernel's launches (K4
-once per pad set; K7's in phase 5; K8's in phases 3 and 5 together, by
-path under launches_by_path; phase 7's pipelined runs under
+once per pad set; K7's in phase 5; K8's and K11's in phases 3 and 5
+together, by path under launches_by_path; phase 7's pipelined runs under
 launches_pipelined; phase 8's under launches_tiled), error, times and
 ptxas registers (K3's
 are its three-plane launch's, with its luma and chroma calls alone under
@@ -128,7 +142,7 @@ with one labelled range per pipeline stage: host
 and device milliseconds per stage, the port's kernels' device time by
 kernel name, and all kernels' device time against the unprofiled wall
 time of the same work (busy share); for the fast frame, its CUDA launches
-beside the 5,981 it took before K9.
+beside the 1,592 it took before K10 and K11.
 """
 
 from __future__ import annotations
@@ -611,6 +625,208 @@ def phase_kernels_subpel(torch, np, gpu, H=1088, W=1920):
         bytes=nbytes, ops=ops, max_abs_err=err, taken=taken)
 
 
+# integer operations per sample of K10 and K11, counted from csrc/tail.cu
+# (one per +, -, *, /, shift or select; wrap16 one): K10 the residual 2,
+# the forward DCT's two passes 40, the variance 3 (its 5 on the 256 luma
+# samples of 384), quantization 8, the carry 1, dequantization 5, the
+# inverse DCT's two passes 54 and the prediction add 3; K11 the carry 1,
+# dequantization 5, the inverse DCT 54 and the prediction add 3
+ENCODE_TAIL_OPS_PER_SAMPLE = 116
+DECODE_TAIL_OPS_PER_SAMPLE = 63
+
+
+def tail_work(name, args, kw):
+    """(bytes, operations) K10 or K11 must spend on one call with `args`
+    and `kw`: each input read once (the stale coefficients only for copy
+    MBs, the only ones that read them), each output written once; the
+    operations of every sample of every MB."""
+    if name == "encode_tail":
+        planes, is_copy, stale = args[0], args[4], True
+        # source and prediction in; coefficients and recon out
+        per_sample = 4 + 4 + 2 + 4
+        per_mb = 3 + 4 + 2         # flags in; qp and variance out
+        ops = ENCODE_TAIL_OPS_PER_SAMPLE
+    else:
+        planes, is_copy = args[0], args[3]
+        stale = kw.get("stale") is not None
+        # coefficients and prediction in; recon, and where asked the
+        # carried coefficients and the residual blocks, out
+        per_sample = 4 + 4 + 4 + (2 if stale else 0) \
+            + (4 if kw.get("residual") else 0)
+        per_mb = 4 + 2             # qp and flags in
+        ops = DECODE_TAIL_OPS_PER_SAMPLE
+    samples = sum(p.numel() for p in planes)
+    copied = int(samples * float(is_copy.float().mean())) if stale else 0
+    return (samples * per_sample + is_copy.numel() * per_mb + copied * 2,
+            samples * ops)
+
+
+def kept_calls(mod, name, run):
+    """Runs run() with mod.name wrapped so that each call's arguments are
+    kept (tensors cloned on the stream of the call); returns the list of
+    (args, kwargs)."""
+    import torch
+
+    def clone(x):
+        if isinstance(x, tuple):
+            return tuple(clone(v) for v in x)
+        return x.clone() if torch.is_tensor(x) else x
+
+    calls, fn = [], getattr(mod, name)
+
+    def spy(*args, **kw):
+        calls.append((clone(args), {k: clone(v) for k, v in kw.items()}))
+        return fn(*args, **kw)
+
+    setattr(mod, name, spy)
+    try:
+        run()
+    finally:
+        setattr(mod, name, fn)
+    return calls
+
+
+def phase_kernels_tail(torch, np, gpu):
+    """K10 and K11 against their plain versions at 1080p, exact, on the
+    arguments the main path gives them (GpuEncoder and GpuDecoder on an
+    intra and an inter frame, each call's arguments kept), and on edge
+    inputs: residuals at 32767, -32767 and 32768 at q 1; full-scale
+    residuals whose transformed MBs' variance sums wrap int32, at q 31;
+    adaptive QP off; every MB a copy; K11 without the carry, with the
+    residual blocks K7 reads, and on coefficients over the whole int16
+    range. Each case runs twice with identical outputs and its inputs left
+    as they were. Returns the records of K10 and K11 (timed on the main
+    path's inter frame)."""
+    from cairo_tpu_torch.synth import synth_frames
+
+    ct, api = gpu["cuda_tail"], gpu["api"]
+    rng = np.random.default_rng(SEED + 10)
+    frames = synth_frames(1920, 1080, 2, seed=SEED % 1000)
+    enc, dec = api.GpuEncoder(), api.GpuDecoder()
+    enc.set_quality(16)
+    decoded = []
+
+    def run():
+        for f in frames:
+            decoded.append(dec.decode(enc.encode(f)))
+        torch.cuda.synchronize()   # the clones were made on the steps' streams
+
+    calls = {}
+    calls["decode_tail"] = kept_calls(
+        ct, "decode_tail", lambda: calls.update(encode_tail=kept_calls(
+            ct, "encode_tail", run)))
+    for name in calls:
+        if len(calls[name]) != len(frames):
+            fail(f"{name}: {len(calls[name])} calls for {len(frames)} "
+                 f"frames of the main path (one each expected)")
+    if not np.array_equal(decoded[-1], enc.peek_destination()):
+        fail("phase 2: the main-path frames of K10/K11's inputs decoded to "
+             "other RGB than the encoder's reconstruction")
+
+    def t(a, dtype):
+        return torch.as_tensor(a).to("cuda", dtype)
+
+    (src, pred, is_intra, is_motion, is_copy, quality, adaptive, coef), _ = \
+        calls["encode_tail"][1]
+    hw = [tuple(p.shape) for p in src]
+    src_np = [p.cpu().numpy().astype(np.int64) for p in src]
+    extreme = tuple(t(np.clip(np.choose(rng.integers(0, 4, s.shape), [
+        s - 32767, s + 32767, s - 32768, rng.integers(-32768, 32768,
+                                                      s.shape)]),
+        -32768, 32767), torch.int32) for s in src_np)
+    full = tuple(t(s - np.where(rng.random(s.shape) < 0.5, -1, 1) * 32767,
+                   torch.int32) for s in src_np)
+
+    def q(v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    enc_cases = [
+        ("main path, inter frame", calls["encode_tail"][1]),
+        ("main path, intra frame", calls["encode_tail"][0]),
+        ("int16 residuals, q 1", ((src, extreme, is_intra, is_motion,
+                                   is_copy, q(1), adaptive, coef), {})),
+        ("variance sums wrap, q 31", ((src, full, is_intra, is_motion,
+                                       is_copy, q(31), adaptive, coef), {})),
+        ("adaptive off", ((src, pred, is_intra, is_motion, is_copy, quality,
+                           False, coef), {})),
+        ("every MB a copy", ((src, pred, is_intra, is_motion,
+                              torch.ones_like(is_copy), quality, adaptive,
+                              coef), {}))]
+    args, kw = calls["decode_tail"][1]
+    _, qp, intra_default, dcopy, dpred = args
+    wide = tuple(t(rng.integers(-32768, 32768, s), torch.int32) for s in hw)
+    dec_cases = [
+        ("main path, inter frame", calls["decode_tail"][1]),
+        ("main path, intra frame", calls["decode_tail"][0]),
+        ("no carry", (args, {})),
+        ("residual blocks for K7", (args, {**kw, "residual": True})),
+        ("int16-range coefficients", ((wide, t(rng.integers(0, 32, qp.numel()),
+                                                torch.int32),
+                                       intra_default, dcopy, dpred),
+                                      {**kw, "residual": True}))]
+    recs = {}
+    for key, name, cases, kernel in (
+            ("K10", "encode_tail", enc_cases, "encode_tail_kernel"),
+            ("K11", "decode_tail", dec_cases, "decode_tail_kernel")):
+        kern, plain = getattr(ct, name), getattr(ct, name + "_plain")
+        err = 0
+        for label, (a, k) in cases:
+            inputs = [x.clone() for x in flat_tensors(a, k)]
+            before = ct.LAUNCHES[name]
+            runs = [kern(*a, **k) for _ in range(2)]
+            torch.cuda.synchronize()
+            if ct.LAUNCHES[name] - before != 2:
+                fail(f"{key} {name} ({label}): {ct.LAUNCHES[name] - before} "
+                     f"launches counted for 2 calls")
+            compare(torch, f"{key} {name} ({label}, second run)",
+                    flat_outputs(runs[1]), flat_outputs(runs[0]))
+            want = plain(*a, **k)
+            if [o is None for o in flat_outputs(runs[0], True)] != \
+                    [o is None for o in flat_outputs(want, True)]:
+                fail(f"{key} {name} ({label}): other outputs than the plain "
+                     f"version's")
+            err = max(err, compare(torch, f"{key} {name} ({label})",
+                                   flat_outputs(runs[0]), flat_outputs(want)))
+            if any(not torch.equal(x, y)
+                   for x, y in zip(inputs, flat_tensors(a, k))):
+                fail(f"{key} {name} ({label}): an input changed")
+        log(f"{key}: two runs identical, equal to the plain version and the "
+            f"inputs unchanged on {', '.join(c[0] for c in cases)}")
+        a, k = cases[0][1]
+        nbytes, ops = tail_work(name, a, k)
+        recs[key] = dict(
+            ms=cuda_ms(torch, lambda: kern(*a, **k), 10),
+            device_ms=device_ms(torch, lambda: kern(*a, **k), kernel),
+            plain_ms=cuda_ms(torch, lambda: plain(*a, **k), 3),
+            bytes=nbytes, ops=ops, max_abs_err=err,
+            copy_share=float(a[4 if name == "encode_tail" else 3]
+                             .float().mean()))
+    return recs
+
+
+def flat_tensors(args, kw):
+    """The tensors among args and kw's values, tuples opened."""
+    import torch
+
+    out = []
+    for a in list(args) + list(kw.values()):
+        for x in (a if isinstance(a, tuple) else (a,)):
+            if torch.is_tensor(x):
+                out.append(x)
+    return out
+
+
+def flat_outputs(out, keep_none=False):
+    """A wrapper's outputs as one tuple of tensors, tuples opened (None,
+    where an output was not asked for, kept only with keep_none)."""
+    flat = []
+    for o in out:
+        for x in (o if isinstance(o, tuple) else (o,)):
+            if x is not None or keep_none:
+                flat.append(x)
+    return tuple(flat)
+
+
 def phase_kernels_halo(torch, np, gpu, check):
     """K1-K4 at the shapes a quarter-1080p tile gives them (core 1088 x
     480 luma; reference margin and ring halo shard.HALO = 32 luma, 16
@@ -1015,8 +1231,8 @@ def phase_conformance(torch, np, gpu):
     frames = synth_frames(1920, 1080, 3, seed=SEED % 991)
     counters = (gpu["cuda_pred"].LAUNCHES, gpu["cuda_inter"].LAUNCHES,
                 gpu["cuda_wave"].LAUNCHES, gpu["cuda_wavedec"].LAUNCHES,
-                gpu["cuda_deblock"].LAUNCHES)
-    k8 = counters[4]
+                gpu["cuda_deblock"].LAUNCHES, gpu["cuda_tail"].LAUNCHES)
+    k8, tail = counters[4], counters[5]
     for c in counters:
         for k in c:
             c[k] = 0
@@ -1029,7 +1245,8 @@ def phase_conformance(torch, np, gpu):
         chunks.append(enc.encode(f))
         torch.cuda.synchronize()
         enc_s.append(time.perf_counter() - t0)
-        deblock_once("conformance path", f"encoded frame {i}", k8, before)
+        launched_once("conformance path", f"encoded frame {i}", k8, before,
+                      "deblock_frame", "K8")
         for k, v in enc.last_stats["stage_ms"].items():
             stages.setdefault(k, []).append(v)
         meta, arrays = enc.state_dict()
@@ -1041,11 +1258,15 @@ def phase_conformance(torch, np, gpu):
     outs, dec_s, waves = [], [], []
     for i, c in enumerate(chunks):
         before, k8_before = counters[3]["wave_decode"], k8["deblock_frame"]
+        k11 = tail["decode_tail"]
         t0 = time.perf_counter()
         outs.append(dec.decode(c))
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
-        deblock_once("conformance path", f"decoded frame {i}", k8, k8_before)
+        launched_once("conformance path", f"decoded frame {i}", k8,
+                      k8_before, "deblock_frame", "K8")
+        launched_once("conformance path", f"decoded frame {i}", tail, k11,
+                      "decode_tail", "K11")
         waves.append((dec.last_stats.get("waves"),
                       dec.last_stats.get("members")))
         k7 = counters[3]["wave_decode"] - before
@@ -1056,7 +1277,10 @@ def phase_conformance(torch, np, gpu):
     launches = {"pred_planes_wide": counters[0]["pred_planes_wide"],
                 "inter_search": counters[1]["inter_search"],
                 "wave_pass": counters[2]["wave_pass"],
-                **counters[3], **k8}
+                **counters[3], **k8, "decode_tail": tail["decode_tail"]}
+    if tail["encode_tail"]:
+        fail(f"conformance path: K10 launched {tail['encode_tail']} times "
+             f"(the conformance encoder's tail is K6's)")
     if launches["wave_pass"] != len(frames):
         fail(f"conformance path: {launches['wave_pass']} K6 launches for "
              f"{len(frames)} frames (one wave pass each expected)")
@@ -1119,10 +1343,11 @@ def phase_conformance_cpu_vs_card(gpu):
 PIPELINE_PATHS = {
     "fast": ("GpuEncoder", ("chroma_max_maps", "dense_select",
                             "gather_windows", "pred_planes",
-                            "deblock_frame", "subpel_scan")),
+                            "deblock_frame", "subpel_scan", "encode_tail",
+                            "decode_tail")),
     "conformance": ("ConformanceGpuEncoder", (
         "pred_planes_wide", "inter_search", "wave_pass", "wave_decode",
-        "deblock_frame"))}
+        "deblock_frame", "decode_tail"))}
 
 
 def measure_pipelined(api, frames, warm, path, quality=16, device="cuda",
@@ -1241,7 +1466,7 @@ def phase_pipelined(gpu, smi):
     frames = synth_frames(1920, 1080, 22, seed=SEED % 983)
     counters = [gpu[m].LAUNCHES for m in (
         "cuda_motion", "cuda_pred", "cuda_inter", "cuda_wave",
-        "cuda_wavedec", "cuda_deblock")]
+        "cuda_wavedec", "cuda_deblock", "cuda_tail")]
     recs = {}
     for path, n in (("fast", 22), ("conformance", 10)):
         t0 = time.perf_counter()
@@ -1261,6 +1486,14 @@ def phase_pipelined(gpu, smi):
         if path == "fast" and k9 != REFS * (n - 1):
             fail(f"phase 7: the fast pipelined run launched K9 {k9} times for "
                  f"{n - 1} inter frames ({REFS} a frame expected)")
+        k10 = rec[f"{path}_launches"]["encode_tail"]
+        if path == "fast" and k10 != n:
+            fail(f"phase 7: the fast pipelined run launched K10 {k10} times "
+                 f"for {n} encoded frames (once a frame expected)")
+        k11 = rec[f"{path}_launches"]["decode_tail"]
+        if k11 != n:
+            fail(f"phase 7: the {path} pipelined run launched K11 {k11} times "
+                 f"for {n} decoded frames (once a frame expected)")
         log(f"phase 7: {path} 1920x1080 q16, {n - 2} measured frames after "
             f"2 on {smi}: encode_many {rec[f'{path}_encode_fps']:.3f} fps "
             f"(loop {rec[f'{path}_encode_loop_fps']:.3f}), decode_many "
@@ -1298,10 +1531,11 @@ def host_decode(np, native, stream, chunks):
     return out
 
 
-def deblock_once(path, frame, counts, before):
-    """Fails unless K8 launched exactly once since `before`."""
-    if counts["deblock_frame"] - before != 1:
-        fail(f"{path}: {frame} launched K8 {counts['deblock_frame'] - before}"
+def launched_once(path, frame, counts, before, name, kernel):
+    """Fails unless counts[name] (kernel `kernel`) went up by exactly one
+    since `before`."""
+    if counts[name] - before != 1:
+        fail(f"{path}: {frame} launched {kernel} {counts[name] - before}"
              f" times (once per frame expected)")
 
 
@@ -1313,37 +1547,45 @@ def phase_main(torch, np, gpu):
 
     api = gpu["api"]
     frames = synth_frames(1920, 1080, 5, seed=SEED % 1000)
-    k8 = gpu["cuda_deblock"].LAUNCHES
-    for mod in (gpu["cuda_motion"], gpu["cuda_pred"], gpu["cuda_deblock"]):
+    k8, tail = gpu["cuda_deblock"].LAUNCHES, gpu["cuda_tail"].LAUNCHES
+    for mod in (gpu["cuda_motion"], gpu["cuda_pred"], gpu["cuda_deblock"],
+                gpu["cuda_tail"]):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     enc = api.GpuEncoder()
     enc.set_quality(16)
     chunks, recons, enc_s, stages = [], [], [], {}
     for i, f in enumerate(frames):
-        before = k8["deblock_frame"]
+        before, k10 = k8["deblock_frame"], tail["encode_tail"]
         t0 = time.perf_counter()
         chunks.append(enc.encode(f))
         torch.cuda.synchronize()
         enc_s.append(time.perf_counter() - t0)
-        deblock_once("main path", f"encoded frame {i}", k8, before)
+        launched_once("main path", f"encoded frame {i}", k8, before,
+                      "deblock_frame", "K8")
+        launched_once("main path", f"encoded frame {i}", tail, k10,
+                      "encode_tail", "K10")
         recons.append(enc.peek_destination())
         for k, v in enc.last_stats["stage_ms"].items():
             stages.setdefault(f"encode.{k}", []).append(v)
     dec = api.GpuDecoder()
     outs, dec_s = [], []
     for i, c in enumerate(chunks):
-        before = k8["deblock_frame"]
+        before, k11 = k8["deblock_frame"], tail["decode_tail"]
         t0 = time.perf_counter()
         outs.append(dec.decode(c))
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
-        deblock_once("main path", f"decoded frame {i}", k8, before)
+        launched_once("main path", f"decoded frame {i}", k8, before,
+                      "deblock_frame", "K8")
+        launched_once("main path", f"decoded frame {i}", tail, k11,
+                      "decode_tail", "K11")
         for k, v in dec.last_stats.get("stage_ms", {}).items():
             stages.setdefault(f"decode.{k}", []).append(v)
     launches = {**gpu["cuda_motion"].LAUNCHES,
                 **{k: gpu["cuda_pred"].LAUNCHES[k]
-                   for k in ("gather_windows", "pred_planes")}, **k8}
+                   for k in ("gather_windows", "pred_planes")}, **k8,
+                **tail}
 
     for i, (o, r) in enumerate(zip(outs, recons)):
         if not np.array_equal(o, r):
@@ -1442,7 +1684,8 @@ def phase_tiled(torch, np, gpu, smi):
     from cairo_tpu_torch.blocktypes import MOTION_BIT
 
     tiled, api = gpu["tiled"], gpu["api"]
-    mods = (gpu["cuda_motion"], gpu["cuda_pred"], gpu["cuda_deblock"])
+    mods = (gpu["cuda_motion"], gpu["cuda_pred"], gpu["cuda_deblock"],
+            gpu["cuda_tail"])
     total = {}
     summary = {}
 
@@ -1452,10 +1695,12 @@ def phase_tiled(torch, np, gpu, smi):
                 for k in counts:
                     counts[k] = 0
 
-    def launched(label, searches):
+    def launched(label, searches, encodes, decodes):
         """Fails unless K1-K4 (with the halo) and K8 launched since reset(),
-        and K9 once per tile of each inter frame's `searches` reference
-        searches; adds the counts to the phase's."""
+        K9 once per tile of each inter frame's `searches` reference
+        searches, K10 once per tile of each of the `encodes` tile frames
+        and K11 once per tile of each of the `decodes`; adds the counts to
+        the phase's."""
         counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
         halo = {k: v for mod in mods[:2]
                 for k, v in mod.HALO_LAUNCHES.items()}
@@ -1470,10 +1715,19 @@ def phase_tiled(torch, np, gpu, smi):
             fail(f"phase 8 ({label}): K9 launched {counts['subpel_scan']} "
                  f"times for {searches} tile reference searches (one each "
                  f"expected)")
+        if counts["encode_tail"] != encodes:
+            fail(f"phase 8 ({label}): K10 launched {counts['encode_tail']} "
+                 f"times for {encodes} encoded tile frames (one each "
+                 f"expected)")
+        if counts["decode_tail"] != decodes:
+            fail(f"phase 8 ({label}): K11 launched {counts['decode_tail']} "
+                 f"times for {decodes} decoded tile frames (one each "
+                 f"expected)")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         return {k: counts[k] for k in TILED_HALO_KERNELS
-                + ("deblock_frame", "subpel_scan")}
+                + ("deblock_frame", "subpel_scan", "encode_tail",
+                   "decode_tail")}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -1512,7 +1766,8 @@ def phase_tiled(torch, np, gpu, smi):
         if not np.array_equal(rgb, enc.recon_rgb()):
             fail(f"phase 8: 1-tile RGB of frame {i} differs from recon_rgb()")
     summary["1_tile"] = dict(
-        launches=launched("1 tile", REFS * 4), inter_encode_fps=fps(enc_s[1:]),
+        launches=launched("1 tile", REFS * 4, 5, 5),
+        inter_encode_fps=fps(enc_s[1:]),
         inter_decode_fps=fps(dec_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s],
         decode_ms=[round(x * 1e3, 1) for x in dec_s])
@@ -1546,7 +1801,7 @@ def phase_tiled(torch, np, gpu, smi):
         fail("phase 8: 4-tile RGB of the traced frame differs from "
              "recon_rgb()")
     summary["4_tiles"] = dict(
-        launches=launched("4 tiles", REFS * 5 * 4),
+        launches=launched("4 tiles", REFS * 5 * 4, 6 * 4, 6 * 4),
         inter_encode_fps=fps(enc_s[1:]),
         inter_decode_fps=fps(dec_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s],
@@ -1571,7 +1826,7 @@ def phase_tiled(torch, np, gpu, smi):
         batched.append(chunks)
         enc_s.append(s_enc)
     summary["2_gops_x_2_tiles"] = dict(
-        launches=launched("2 GOPs x 2 tiles", REFS * 4 * 2 * 2),
+        launches=launched("2 GOPs x 2 tiles", REFS * 4 * 2 * 2, 5 * 2 * 2, 0),
         inter_batch_fps=fps(enc_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s])
     reset()
@@ -1582,7 +1837,7 @@ def phase_tiled(torch, np, gpu, smi):
             if alone.encode(f) != batched[i][g]:
                 fail(f"phase 8: GOP {g} frame {i} differs from the GOP "
                      f"encoded alone")
-    launched("each GOP alone, 2 tiles", REFS * 4 * 2 * 2)
+    launched("each GOP alone, 2 tiles", REFS * 4 * 2 * 2, 5 * 2 * 2, 0)
 
     # ---- 352x288 over 4 tiles: card against CPU
     reset()
@@ -1596,7 +1851,7 @@ def phase_tiled(torch, np, gpu, smi):
             fail(f"phase 8: 352x288 4-tile chunks of frame {i} differ "
                  f"between the CPU and the card")
     summary["352x288_4_tiles"] = dict(
-        launches=launched("352x288, 4 tiles", REFS * 2 * 4))
+        launches=launched("352x288, 4 tiles", REFS * 2 * 4, 3 * 4, 0))
     summary["seconds"] = time.perf_counter() - t_phase
     return total, summary
 
@@ -1872,19 +2127,21 @@ PROFILE_STAGES = (
     ("motion", "inter_search"), ("cuda_motion", "chroma_max_maps"),
     ("cuda_motion", "dense_select"), ("cuda_motion", "subpel_scan"),
     ("cuda_pred", "gather_windows_yuv"),
-    ("cuda_pred", "pred_planes"), ("engine", "quantize_planes"),
-    ("engine", "reconstruct"), ("cuda_deblock", "deblock_frame"),
-    ("ops", "fdct8"), ("cuda_inter", "inter_search"),
+    ("cuda_pred", "pred_planes"), ("cuda_tail", "encode_tail"),
+    ("cuda_tail", "decode_tail"), ("cuda_deblock", "deblock_frame"),
+    ("cuda_inter", "inter_search"),
     ("cuda_wave", "wave_pass"), ("wavefront", "_conformance_tail"),
-    ("wavefront", "conformance_decode_step"), ("engine", "residual"),
+    ("wavefront", "conformance_decode_step"),
     ("cuda_wavedec", "wave_decode"))
 PORT_KERNELS = ("chroma_max_kernel", "dense_select_kernel",
                 "gather_windows_kernel", "pred_planes_kernel",
                 "inter_search_kernel", "wave_decode_kernel", "wave_kernel",
-                "deblock_kernel", "subpel_scan_kernel")
+                "deblock_kernel", "subpel_scan_kernel", "encode_tail_kernel",
+                "decode_tail_kernel")
 # CUDA launches of a traced fast inter frame (encode + decode, 1080p q16)
-# before the sub-pel scan became one kernel (K9), on NVIDIA H100 80GB HBM3
-FAST_FRAME_LAUNCHES_BEFORE_K9 = 5981
+# before the transform tail became two kernels (K10, K11), on NVIDIA H100
+# 80GB HBM3 (5,981 before K9)
+FAST_FRAME_LAUNCHES_BEFORE_K10 = 1592
 
 
 def profile_frame(torch, smi, label, warm, timed, traced, before=None):
@@ -1924,7 +2181,7 @@ def profile_frame(torch, smi, label, warm, timed, traced, before=None):
         f"of the unprofiled wall")
     if before is not None:
         log(f"profile: {label}: {sum(e.count for e in kernels)} CUDA launches "
-            f"against {before} before K9")
+            f"against {before} before K10 and K11")
     log("profile: stage | host ms (profiled) | device ms of the ATen "
         "kernels inside it | calls")
     rows = sorted((e for e in events if e.key.startswith("stage.")
@@ -1984,7 +2241,7 @@ def phase_profile(torch, gpu, smi):
         torch, smi, "one 1920x1080 q16 inter frame encoded + decoded",
         lambda: [fast(enc, dec, f) for f in frames[:2]],
         lambda: fast(enc, dec, frames[2]), lambda: fast(enc, dec, frames[3]),
-        before=FAST_FRAME_LAUNCHES_BEFORE_K9)
+        before=FAST_FRAME_LAUNCHES_BEFORE_K10)
 
     chunks = []
 
@@ -2034,20 +2291,20 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     from cairo_tpu_torch.gpu import (_build, api, cuda_deblock, cuda_inter,
-                                     cuda_motion, cuda_pred, cuda_wave,
-                                     cuda_wavedec, deblock, ops, shard,
-                                     tiled, wavefront)
+                                     cuda_motion, cuda_pred, cuda_tail,
+                                     cuda_wave, cuda_wavedec, deblock, ops,
+                                     shard, tiled, wavefront)
     gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred,
                cuda_inter=cuda_inter, cuda_wave=cuda_wave,
                cuda_wavedec=cuda_wavedec, cuda_deblock=cuda_deblock,
-               deblock=deblock, ops=ops, shard=shard, tiled=tiled,
-               wavefront=wavefront)
+               cuda_tail=cuda_tail, deblock=deblock, ops=ops, shard=shard,
+               tiled=tiled, wavefront=wavefront)
     secs = _build.build_all()
     log(f"phase 1: built kernels in {secs['kernels_s']:.1f}s and the native "
         f"library in {secs['native_s']:.1f}s")
     log("kernels: K1 chroma_max_maps, K2 dense_select, K3 gather_windows, "
         "K4 pred_planes, K5 inter_search, K6 wave_pass, K7 wave_decode, "
-        "K8 deblock_frame, K9 subpel_scan")
+        "K8 deblock_frame, K9 subpel_scan, K10 encode_tail, K11 decode_tail")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gpu, smi)
         faulthandler.cancel_dump_traceback_later()
@@ -2057,6 +2314,7 @@ def main():
     recs = phase_kernels(torch, np, gpu)
     recs["K8"] = phase_kernels_deblock(torch, gpu)
     recs["K9"] = phase_kernels_subpel(torch, np, gpu)
+    recs.update(phase_kernels_tail(torch, np, gpu))
     for k, r in recs.items():
         dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
             else ""
@@ -2079,6 +2337,18 @@ def main():
         f"ms), bound {k9['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) / "
         f"{k9['ops'] / INT_OPS_PER_S * 1e3:.4f} ms (operations); "
         f"{usage['subpel_scan_kernel']} on {smi}")
+    for k, kname in (("K10", "encode_tail_kernel"),
+                     ("K11", "decode_tail_kernel")):
+        r = recs[k]
+        if kname not in usage:
+            fail(f"ptxas reported nothing for {kname}")
+        log(f"phase 2: {k} at 1920x1088 ({r['bytes'] / 1e6:.1f} MB, "
+            f"{r['ops'] / 1e9:.3f} G integer operations, copy MBs "
+            f"{100 * r['copy_share']:.1f} %): {r['ms']:.4f} ms, kernel alone "
+            f"{r['device_ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound "
+            f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) / "
+            f"{r['ops'] / INT_OPS_PER_S * 1e3:.4f} ms (operations); "
+            f"{usage[kname]} on {smi}")
     k8 = recs["K8"]
     if "deblock_kernel" not in usage:
         fail("ptxas reported nothing for deblock_kernel")
@@ -2127,16 +2397,18 @@ def main():
                   "gather_windows_kernel<0>", "gather_windows_kernel<1>",
                   "gather_windows_kernel<2>", "pred_planes_kernel<17,9>",
                   "pred_planes_kernel<33,17>", "inter_search_kernel",
-                  "wave_kernel", "wave_decode_kernel", "subpel_scan_kernel"):
+                  "wave_kernel", "wave_decode_kernel", "subpel_scan_kernel",
+                  "encode_tail_kernel", "decode_tail_kernel"):
         if kname not in usage:
             fail(f"ptxas reported nothing for {kname}")
         log(f"phase 2b: {kname}: {usage[kname]}")
 
     claunches, csum = phase_conformance(torch, np, gpu)
-    k8_by_path = {"fast": launches["deblock_frame"],
-                  "conformance": claunches["deblock_frame"]}
+    by_path = {name: {"fast": launches[name], "conformance": claunches[name]}
+               for name in ("deblock_frame", "decode_tail")}
     launches.update(claunches)
-    launches["deblock_frame"] = sum(k8_by_path.values())
+    for name, counts in by_path.items():
+        launches[name] = sum(counts.values())
     log(f"phase 5: conformance encode 1920x1080 q16, {csum['frames']} frames "
         f"on {smi}: inter frames {csum['inter_encode_fps']:.2f} fps; psnr "
         f"{csum['psnr_db']:.2f} dB, {csum['kbits_per_frame']:.1f} "
@@ -2218,6 +2490,12 @@ def main():
         # refinement
         "K9": ("subpel_scan", "src/cairo_tpu_torch/gpu/csrc/subpel.cu",
                "src/cairo_tpu/tpu/motion.py:476"),
+        # no Pallas kernel: the XLA fusions of the fast steps' transform
+        # tail, encode (encode_step) and decode (_decode_common)
+        "K10": ("encode_tail", "src/cairo_tpu_torch/gpu/csrc/tail.cu",
+                "src/cairo_tpu/tpu/engine.py:219"),
+        "K11": ("decode_tail", "src/cairo_tpu_torch/gpu/csrc/tail.cu",
+                "src/cairo_tpu/tpu/engine.py:329"),
     }
     instances = dict(K1="chroma_max_kernel", K2="dense_select_kernel",
                      K3="gather_windows_kernel<2>",
@@ -2225,7 +2503,8 @@ def main():
                      K4w="pred_planes_kernel<33,17>",
                      K5="inter_search_kernel", K6="wave_kernel",
                      K7="wave_decode_kernel", K8="deblock_kernel",
-                     K9="subpel_scan_kernel")
+                     K9="subpel_scan_kernel", K10="encode_tail_kernel",
+                     K11="decode_tail_kernel")
     kernels = []
     for k, (name, source, replaces) in meta.items():
         r = recs[k]
@@ -2249,9 +2528,12 @@ def main():
                             if k.startswith(("luma_", "chroma_", "intra_"))})
         if k == "K9":
             kernels[-1]["taken_by_case"] = r["taken"]
-    # K8's launches in phase 3 (fast encode and decode) and phase 5
-    # (conformance encode and wavefront decode)
-    kernels[list(meta).index("K8")]["launches_by_path"] = k8_by_path
+    # K8's and K11's launches in phase 3 (fast encode and decode) and
+    # phase 5 (conformance encode and the GpuDecoder of its stream)
+    kernels[list(meta).index("K8")]["launches_by_path"] = \
+        by_path["deblock_frame"]
+    kernels[list(meta).index("K11")]["launches_by_path"] = \
+        by_path["decode_tail"]
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

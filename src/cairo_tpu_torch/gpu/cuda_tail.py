@@ -1,0 +1,241 @@
+"""The fast step's transform tail: kernels K10 encode_tail and K11
+decode_tail, with their plain PyTorch versions.
+
+Neither replaces a Pallas kernel: on the TPU the tail runs inside the jit
+of the fast steps, and XLA fuses it into a few kernels
+(cairo_tpu/tpu/engine.py:219-281, encode_step from the residual to the
+reconstruction; :329-378, _decode_common's reconstruction, with
+decode_step_coo's coefficient carry :453-465).
+
+Dispatch, one rule per wrapper: a CPU tensor takes the plain version; a
+CUDA tensor launches the kernel of csrc/tail.cu or raises. Each launch
+adds one to LAUNCHES[name].
+
+  * encode_tail (K10): source and prediction planes -> the residual, the
+    forward DCT, the variance and adaptive QP, quantization, the
+    coefficient planes (stale on copy MBs) and the reconstruction before
+    the deblock. Its plain version is the torch chain engine.encode_planes
+    ran, engine.quantize_planes and engine.reconstruct included.
+  * decode_tail (K11): coefficient planes -> the optional stale carry of
+    copy MBs (engine.carry_coef), dequantization, the inverse DCT
+    (engine.residual) and the prediction add (engine.add_pred); on
+    request also the residual blocks the wave decode (K7) reads.
+
+Planes go in and out; the kernels cut the MBs themselves. This module and
+engine import each other: engine calls the wrappers, the plain versions
+call engine's helpers, and neither reads the other at import.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import tables
+from . import _build, engine, ops
+
+MB = tables.MACROBLOCK_SIZE
+I32 = torch.int32
+I16 = torch.int16
+TOP = tables.MAX_QUANT_LEVELS - 1
+_FLAGS = (torch.bool, torch.uint8)
+_TABLES = ("B", "INTRA_QM", "INTER_QM", "LUMA_DC", "CHROMA_DC")
+# the ctypes signatures of csrc/tail.cu's C entries, the stream last
+ENCODE_SIGNATURE = "p" * 18 + "i" * 5 + "p" * 9
+DECODE_SIGNATURE = "p" * 17 + "i" * 3 + "p" * 10
+
+LAUNCHES = {"encode_tail": 0, "decode_tail": 0}
+
+
+def _blocks(planes):
+    """(Y, U, V) planes -> MB blocks ((N, 16, 16), (N, 8, 8), (N, 8, 8))."""
+    return (ops.plane_to_blocks(planes[0], MB),
+            ops.plane_to_blocks(planes[1], MB // 2),
+            ops.plane_to_blocks(planes[2], MB // 2))
+
+
+def _planes(blocks, h, w):
+    return (ops.blocks_to_plane(blocks[0], h, w),
+            ops.blocks_to_plane(blocks[1], h // 2, w // 2),
+            ops.blocks_to_plane(blocks[2], h // 2, w // 2))
+
+
+# ------------------------------------------------------------ plain versions
+
+def encode_tail_plain(src, pred, is_intra, is_motion, is_copy, quality,
+                      adaptive, coef):
+    h, w = src[0].shape
+    n = (h // MB) * (w // MB)
+    is_intra, is_motion, copy_mb = (f.bool() for f in (is_intra, is_motion,
+                                                       is_copy))
+    pred = _blocks(pred)
+    res = tuple(ops.wrap16(s - p) for s, p in zip(_blocks(src), pred))
+    ty = ops.quads_to_mb(ops.fdct8(ops.mb_quads(res[0])))
+    tu, tv = ops.fdct8(res[1]), ops.fdct8(res[2])
+    variance = ops.block_variance2(ty)
+    qp = ops.adaptive_qp(quality, ty) if adaptive else \
+        torch.full((n,), 0, dtype=I32, device=ty.device) + quality
+    intra_qm = is_intra & ~is_motion  # INTRA_DEFAULT only
+    qy, qu, qv = engine.quantize_planes(ty, tu, tv, qp, intra_qm)
+
+    # coefficient planes (stale persistence for copy blocks)
+    copy3 = copy_mb[:, None, None]
+    qy_mb = ops.quads_to_mb(qy.reshape(-1, 4, 8, 8))
+    new_coef = tuple(
+        ops.blocks_to_plane(torch.where(
+            copy3, ops.plane_to_blocks(old, size).to(I32), q), *old.shape)
+        .to(I16) for old, q, size in zip(coef, (qy_mb, qu, qv),
+                                         (MB, MB // 2, MB // 2)))
+    rec = engine.reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb)
+    return (new_coef, qp, ops.wrap16(variance).to(I16),
+            _planes(rec, h, w))
+
+
+def decode_tail_plain(coef, qp, intra_default, is_copy, pred, stale=None,
+                      residual=False):
+    h, w = coef[0].shape
+    intra_default, is_copy = intra_default.bool(), is_copy.bool()
+    if stale is not None:
+        coef = engine.carry_coef(stale, is_copy, coef)
+    res = engine.residual(*engine.coef_blocks(*coef), qp, intra_default)
+    rec = engine.add_pred(res, _blocks(pred), is_copy)
+    carried = None if stale is None else tuple(c.to(I16) for c in coef)
+    return _planes(rec, h, w), carried, res if residual else None
+
+
+# ----------------------------------------------------------------- checks
+
+def _grid(plane, name):
+    """(h, w, MBs) of a luma plane the kernels take."""
+    h, w = plane.shape
+    if h % MB or w % MB:
+        raise ValueError(f"{name}: plane dims must be multiples of 16")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"{name}: planes of 2^31 samples or more")
+    return h, w, (h // MB) * (w // MB)
+
+
+def _check_planes(planes, name, dtype, h, w, dev):
+    for t, p, shape in zip(planes, "yuv", ((h, w), (h // 2, w // 2),
+                                           (h // 2, w // 2))):
+        _build.check(t, f"{name}_{p}", dtype, shape)
+        _same_device(t, f"{name}_{p}", dev)
+
+
+def _check_field(t, name, kinds, n, dev):
+    if not torch.is_tensor(t) or t.dtype not in kinds:
+        raise ValueError(f"{name}: expected a tensor of one of {kinds}")
+    _build.check(t, name, t.dtype, (n,))
+    _same_device(t, name, dev)
+
+
+def _same_device(t, name, dev):
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, the planes on {dev}")
+
+
+def _ptrs(ts):
+    return tuple(t.data_ptr() for t in ts)
+
+
+def _table_ptrs(dev):
+    c = ops.consts(dev)
+    return tuple(c[k].data_ptr() for k in _TABLES)
+
+
+def _new_planes(h, w, dtype, dev):
+    """Three planes (h, w), (h/2, w/2), (h/2, w/2) in one buffer."""
+    cs = h * w // 4
+    buf = torch.empty(h * w + 2 * cs, dtype=dtype, device=dev)
+    y, u, v = buf.split([h * w, cs, cs])
+    return y.view(h, w), u.view(h // 2, w // 2), v.view(h // 2, w // 2)
+
+
+# ----------------------------------------------------------------- K10
+
+def encode_tail(src, pred, is_intra, is_motion, is_copy, quality, adaptive,
+                coef):
+    """The transform tail of one fast-mode frame (engine.encode_planes).
+    Returns (coef, qp, variance, rec): the new coefficient planes, int16
+    (a copy MB keeps the stale ones of `coef`); per-MB qp, int32, and the
+    wrapped variance, int16; the reconstruction planes before the
+    deblock, int32 (a copy MB's is its prediction).
+
+    src, pred: (Y (H, W), U, V (H/2, W/2)) int32 planes, the source and
+    K4's prediction (zero where intra); is_intra, is_motion, is_copy:
+    (N,) bool or uint8 per MB; quality: the frame's quality, an int32
+    scalar tensor read on the device, or an int; adaptive: whether qp
+    adapts to each MB's variance (else it is the quality); coef: the
+    state's int16 coefficient planes. The inputs are left as they are."""
+    if src[0].device.type == "cpu":
+        return encode_tail_plain(src, pred, is_intra, is_motion, is_copy,
+                                 quality, adaptive, coef)
+    h, w, n = _grid(src[0], "encode_tail")
+    dev = src[0].device
+    _check_planes(src, "src", I32, h, w, dev)
+    _check_planes(pred, "pred", I32, h, w, dev)
+    _check_planes(coef, "coef", I16, h, w, dev)
+    flags = (is_intra, is_motion, is_copy)
+    for t, name in zip(flags, ("is_intra", "is_motion", "is_copy")):
+        _check_field(t, name, _FLAGS, n, dev)
+    q = torch.as_tensor(quality, dtype=I32, device=dev).reshape(1)
+    _build.check(q, "quality", I32, (1,))
+    out = _new_planes(h, w, I16, dev)
+    rec = _new_planes(h, w, I32, dev)
+    qp = torch.empty(n, dtype=I32, device=dev)
+    variance = torch.empty(n, dtype=I16, device=dev)
+    fn = _build.kernel_fn("cairo_encode_tail", ENCODE_SIGNATURE)
+    _build.launch(fn, dev, *_ptrs(src), *_ptrs(pred), *_ptrs(flags),
+                  q.data_ptr(), *_ptrs(coef), *_table_ptrs(dev), h, w,
+                  int(bool(adaptive)), tables.QUANTIZER_SCALE_FACTOR, TOP,
+                  *_ptrs(out), qp.data_ptr(), variance.data_ptr(),
+                  *_ptrs(rec))
+    LAUNCHES["encode_tail"] += 1
+    return out, qp, variance, rec
+
+
+# ----------------------------------------------------------------- K11
+
+def decode_tail(coef, qp, intra_default, is_copy, pred, stale=None,
+                residual=False):
+    """The reconstruction of one fast-mode frame before the deblock
+    (engine.decode_planes). Returns (rec, carried, res): the int32
+    reconstruction planes (a copy MB's is its prediction); where `stale`
+    is given, the frame's coefficient planes after the carry, int16 (else
+    None); where `residual` is set, the residual blocks ((N, 16, 16),
+    (N, 8, 8), (N, 8, 8)) int32 that K7 reads (else None).
+
+    coef: (Y (H, W), U, V (H/2, W/2)) int32 coefficient planes; qp: (N,)
+    int32; intra_default, is_copy: (N,) bool or uint8; pred: int32
+    prediction planes; stale: the state's int16 coefficient planes, which
+    copy MBs take in place of `coef` (decode_step_coo and the wave
+    decode), or None. The inputs are left as they are."""
+    if coef[0].device.type == "cpu":
+        return decode_tail_plain(coef, qp, intra_default, is_copy, pred,
+                                 stale, residual)
+    h, w, n = _grid(coef[0], "decode_tail")
+    dev = coef[0].device
+    _check_planes(coef, "coef", I32, h, w, dev)
+    _check_planes(pred, "pred", I32, h, w, dev)
+    if stale is not None:
+        _check_planes(stale, "stale", I16, h, w, dev)
+    _check_field(qp, "qp", (I32,), n, dev)
+    for t, name in ((intra_default, "intra_default"), (is_copy, "is_copy")):
+        _check_field(t, name, _FLAGS, n, dev)
+    rec = _new_planes(h, w, I32, dev)
+    carried = None if stale is None else _new_planes(h, w, I16, dev)
+    res = None
+    if residual:
+        buf = torch.empty(n * 384, dtype=I32, device=dev)
+        y, u, v = buf.split([n * 256, n * 64, n * 64])
+        res = (y.view(n, MB, MB), u.view(n, MB // 2, MB // 2),
+               v.view(n, MB // 2, MB // 2))
+    none = (None, None, None)
+    fn = _build.kernel_fn("cairo_decode_tail", DECODE_SIGNATURE)
+    _build.launch(fn, dev, *_ptrs(coef), qp.data_ptr(),
+                  intra_default.data_ptr(), is_copy.data_ptr(),
+                  *_ptrs(pred), *(none if stale is None else _ptrs(stale)),
+                  *_table_ptrs(dev), h, w, tables.QUANTIZER_SCALE_FACTOR,
+                  *_ptrs(rec), *(none if carried is None else _ptrs(carried)),
+                  *(none if res is None else _ptrs(res)))
+    LAUNCHES["decode_tail"] += 1
+    return rec, carried, res

@@ -3,10 +3,11 @@
 
 Encode dataflow: source wire -> per-MB inter searches against the 3
 previous ring slots (motion.inter_search) -> classification merge ->
-prediction planes (K4) -> residual DCT -> adaptive QP -> quantize ->
-reconstruction into the ring slot -> deblock (K8) -> packed output
-wire (block table + residual COO). The host's C++ entropy coder
-serializes the slice.
+prediction planes (K4) -> the transform tail (K10: residual DCT,
+adaptive QP, quantize, coefficient planes, reconstruction) -> deblock
+(K8) -> ring slot, and the packed output wire (block table + residual
+COO). The host's C++ entropy coder serializes the slice. Decode: K4 ->
+K11 (dequantize, inverse DCT, prediction add) -> K8 -> ring slot.
 
 The carried state is the recon ring and the persistent coefficient
 planes, as on the JAX package's Pallas path (no window caches). The tiled
@@ -25,7 +26,7 @@ import torch
 
 from .. import tables
 from ..blocktypes import COPY_BIT, INTRA_BIT, MOTION_BIT
-from . import cuda_deblock, cuda_pred, ops
+from . import cuda_deblock, cuda_pred, cuda_tail, ops
 from . import motion as motion_mod
 from . import wire as wire_mod
 
@@ -59,16 +60,14 @@ def _header(wire):
     return hdr[0], hdr[1]
 
 
-def _gather_pred(state, frame_index, target, mx, my, sp_pred, sp_amount,
+def _pred_planes(state, frame_index, target, mx, my, sp_pred, sp_amount,
                  sp_index, zero, halo=0):
-    """Prediction blocks for all MBs (zeroed where `zero`, i.e. intra);
-    `halo`: the ring's halo columns (0 on a single card)."""
+    """Prediction planes (K4) of all MBs (zeroed where `zero`, i.e.
+    intra); `halo`: the ring's halo columns (0 on a single card)."""
     slot_per_mb = (frame_index + RING - target) % RING
-    py, pu, pv = cuda_pred.pred_planes(
+    return cuda_pred.pred_planes(
         state["ring_y"], state["ring_u"], state["ring_v"], slot_per_mb,
         mx, my, sp_pred, sp_amount, sp_index, zero, halo=halo)
-    return (ops.plane_to_blocks(py, MB), ops.plane_to_blocks(pu, MB // 2),
-            ops.plane_to_blocks(pv, MB // 2))
 
 
 def _intra_best(n, device):
@@ -162,16 +161,6 @@ def reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb):
     return add_pred(residual(qy, qu, qv, qp, intra_qm), pred, copy_mb)
 
 
-def _deblocked(rec, aligned_h, aligned_w, copy_mb, qp, deblock):
-    """Recon blocks -> planes -> deblock; the ring write is the
-    caller's."""
-    return deblock_planes(
-        ops.blocks_to_plane(rec[0], aligned_h, aligned_w),
-        ops.blocks_to_plane(rec[1], aligned_h // 2, aligned_w // 2),
-        ops.blocks_to_plane(rec[2], aligned_h // 2, aligned_w // 2),
-        copy_mb, qp, deblock)
-
-
 def finish_planes(state, rec_y, rec_u, rec_v, frame_index, copy_mb, qp,
                   deblock):
     """Recon planes -> deblock (q 0 on copy MBs) -> ring slot
@@ -238,11 +227,12 @@ def encode_planes(y_in, u_in, v_in, state, frame_index, quality, *,
     aligned_h, aligned_w = y_in.shape
     px, py, wb, hb = _mb_coords(aligned_w, aligned_h, dev)
     n = wb * hb
-    src = (ops.plane_to_blocks(y_in, MB), ops.plane_to_blocks(u_in, MB // 2),
-           ops.plane_to_blocks(v_in, MB // 2))
     ring = (state["ring_y"], state["ring_u"], state["ring_v"])
 
     if is_inter:
+        src = (ops.plane_to_blocks(y_in, MB),
+               ops.plane_to_blocks(u_in, MB // 2),
+               ops.plane_to_blocks(v_in, MB // 2))
         best = _classify_inter(src, (y_in, u_in, v_in), ring, px, py,
                                quality, frame_index, n_refs, x0=x0,
                                full_width=full_width, halo=halo)
@@ -252,35 +242,19 @@ def encode_planes(y_in, u_in, v_in, state, frame_index, quality, *,
                   | best["is_motion"].to(I32) * MOTION_BIT
                   | best["is_copy"].to(I32) * COPY_BIT)
 
-    pred = _gather_pred(state, frame_index, best["target"], best["motion_x"],
+    pred = _pred_planes(state, frame_index, best["target"], best["motion_x"],
                         best["motion_y"], best["sp_pred"], best["sp_amount"],
                         best["sp_index"], best["is_intra"], halo)
 
-    # --- residual transform, adaptive QP, quantization
-    res = tuple(ops.wrap16(s - p) for s, p in zip(src, pred))
-    ty = ops.quads_to_mb(ops.fdct8(ops.mb_quads(res[0])))
-    tu, tv = ops.fdct8(res[1]), ops.fdct8(res[2])
-    variance = ops.block_variance2(ty)
-    qp = ops.adaptive_qp(quality, ty) if adaptive else \
-        torch.full((n,), 0, dtype=I32, device=dev) + quality
-    intra_qm = best["is_intra"] & ~best["is_motion"]  # INTRA_DEFAULT only
-    qy, qu, qv = quantize_planes(ty, tu, tv, qp, intra_qm)
-
-    # --- coefficient planes (stale persistence for copy blocks)
+    # --- the transform tail (K10): residual DCT, adaptive QP, quantization,
+    # the coefficient planes (stale on copy blocks), reconstruction
     copy_mb = best["is_copy"]
-    copy3 = copy_mb[:, None, None]
-    qy_mb = ops.quads_to_mb(qy.reshape(-1, 4, 8, 8))
-    for key, q, size, h, w in (
-            ("coef_y", qy_mb, MB, aligned_h, aligned_w),
-            ("coef_u", qu, MB // 2, aligned_h // 2, aligned_w // 2),
-            ("coef_v", qv, MB // 2, aligned_h // 2, aligned_w // 2)):
-        stale = ops.plane_to_blocks(state[key], size).to(I32)
-        state[key] = ops.blocks_to_plane(torch.where(copy3, stale, q), h, w) \
-            .to(torch.int16)
-
-    # --- reconstruction, deblock
-    rec = _deblocked(reconstruct(qy, qu, qv, qp, intra_qm, pred, copy_mb),
-                     aligned_h, aligned_w, copy_mb, qp, deblock)
+    coef, qp, variance, rec = cuda_tail.encode_tail(
+        (y_in, u_in, v_in), pred, best["is_intra"], best["is_motion"],
+        copy_mb, quality, adaptive,
+        (state["coef_y"], state["coef_u"], state["coef_v"]))
+    state["coef_y"], state["coef_u"], state["coef_v"] = coef
+    rec = deblock_planes(*rec, copy_mb, qp, deblock)
 
     outputs = dict(
         block_type=block_type.to(torch.uint8),
@@ -290,34 +264,38 @@ def encode_planes(y_in, u_in, v_in, state, frame_index, quality, *,
         sp_pred=best["sp_pred"], sp_amount=best["sp_amount"],
         sp_index=best["sp_index"].to(torch.uint8),
         q_index=torch.where(copy_mb, 0, qp).to(torch.uint8),
-        variance=ops.wrap16(variance).to(torch.int16),
+        variance=variance,
         coef_y=state["coef_y"], coef_u=state["coef_u"],
         coef_v=state["coef_v"])
     return outputs, rec, copy_mb
 
 
 def _decode_common(table, coef_y, coef_u, coef_v, state, frame_index,
-                   deblock=True):
+                   deblock=True, carry=False):
     """Shared reconstruction body (decode.cpp:15-144, fast-mode streams).
-    coef planes int32-valued; returns (rec_y, rec_u, rec_v) and updates
-    the state in place."""
+    coef planes int32-valued; with `carry`, copy MBs take the state's
+    stale coefficients instead (decode_step_coo). Returns (rec_y, rec_u,
+    rec_v) and updates the state's ring and coefficient planes in
+    place."""
     out = decode_planes(table, coef_y, coef_u, coef_v, state, frame_index,
-                        deblock)
+                        deblock, carry=carry)
     write_slot(state, out, frame_index)
-    state["coef_y"] = coef_y.to(torch.int16)
-    state["coef_u"] = coef_u.to(torch.int16)
-    state["coef_v"] = coef_v.to(torch.int16)
+    if not carry:
+        state["coef_y"] = coef_y.to(torch.int16)
+        state["coef_u"] = coef_u.to(torch.int16)
+        state["coef_v"] = coef_v.to(torch.int16)
     return out
 
 
 def decode_planes(table, coef_y, coef_u, coef_v, state, frame_index,
-                  deblock=True, halo=0):
+                  deblock=True, halo=0, carry=False):
     """The deblocked reconstruction of one fast-mode frame (decode.cpp:
     15-144) from its block table and int32-valued coefficient planes,
     against the state's ring (halo: its halo columns); the ring slot is
     not written (_decode_common writes it; a tile, after the halo
-    exchange)."""
-    aligned_h, aligned_w = coef_y.shape
+    exchange). With `carry`, copy MBs take the state's stale coefficients
+    (FORMAT.md §4) and the carried planes replace the state's, in the
+    same launch (K11)."""
     block_type = table["block_type"].to(I32)
     is_intra = (block_type & INTRA_BIT) != 0
     is_motion = (block_type & MOTION_BIT) != 0
@@ -330,13 +308,18 @@ def decode_planes(table, coef_y, coef_u, coef_v, state, frame_index,
     sp_pred = is_motion & table["sp_pred"]
     qp = table["q_index"].to(I32)
     intra_default = is_intra & ~is_motion
-    pred = _gather_pred(state, frame_index, target, mx, my, sp_pred,
+    pred = _pred_planes(state, frame_index, target, mx, my, sp_pred,
                         table["sp_amount"], table["sp_index"].to(I32),
                         intra_default, halo)
 
-    rec = reconstruct(*coef_blocks(coef_y, coef_u, coef_v), qp,
-                      intra_default, pred, is_copy)
-    return _deblocked(rec, aligned_h, aligned_w, is_copy, qp, deblock)
+    stale = (state["coef_y"], state["coef_u"], state["coef_v"]) \
+        if carry else None
+    rec, carried, _ = cuda_tail.decode_tail(
+        (coef_y, coef_u, coef_v), qp, intra_default, is_copy, pred,
+        stale=stale)
+    if carry:
+        state["coef_y"], state["coef_u"], state["coef_v"] = carried
+    return deblock_planes(*rec, is_copy, qp, deblock)
 
 
 def decode_step(table, coef, state, frame_index, *, width, height,
@@ -367,11 +350,9 @@ def decode_step_coo(in_wire, state, *, aligned_w, aligned_h, frame_w=None,
     frame_index = in_wire[:8].view(I32)[0]
     body = in_wire[8:]
     table = wire_mod.unpack_table_wire(body[6 * k:], n)
-    is_copy = (table["block_type"].to(I32) & COPY_BIT) != 0
-    coef_y, coef_u, coef_v = carry_coef(
-        state, is_copy, coo_planes(body, k, aligned_w, aligned_h))
     rec_y, rec_u, rec_v = _decode_common(
-        table, coef_y, coef_u, coef_v, state, frame_index, deblock)
+        table, *coo_planes(body, k, aligned_w, aligned_h), state,
+        frame_index, deblock, carry=True)
     pack = (wire_mod.pack_yuv5d_wire if out_fmt == "yuv5d"
             else wire_mod.pack_yuv_wire)
     return state, pack(rec_y, rec_u, rec_v,
@@ -399,17 +380,16 @@ def coo_planes(body, k, aligned_w, aligned_h):
             flat[ys + cs:].reshape(aligned_h // 2, aligned_w // 2))
 
 
-def carry_coef(state, is_copy, new_coef):
-    """The frame's int32 coefficient planes: copy MBs keep the state's
-    stale coefficients (FORMAT.md §4), the others take new_coef (the
-    carry of engine.decode_step_coo and
-    wavefront._conformance_decode_core)."""
-    ymask = mb_mask(is_copy, *state["coef_y"].shape)
+def carry_coef(stale, is_copy, new_coef):
+    """The frame's int32 coefficient planes: copy MBs keep the stale
+    coefficients (the state's int16 planes, FORMAT.md §4), the others
+    take new_coef (the carry of engine.decode_step_coo and
+    wavefront._conformance_decode_core; K11's plain version)."""
+    ymask = mb_mask(is_copy, *stale[0].shape)
     cmask = ymask[::2, ::2]
-    return tuple(torch.where(mask, state[key].to(I32), new)
-                 for key, mask, new in zip(
-                     ("coef_y", "coef_u", "coef_v"), (ymask, cmask, cmask),
-                     new_coef))
+    return tuple(torch.where(mask, old.to(I32), new)
+                 for old, mask, new in zip(stale, (ymask, cmask, cmask),
+                                           new_coef))
 
 
 def mb_mask(flags, height, width):

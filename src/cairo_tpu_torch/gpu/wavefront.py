@@ -19,9 +19,10 @@ travel in the source wire's 8-byte header and stay on the device.
 
 The decode half (counterpart of wavefront.py:680-1086) reconstructs the
 frames of reference-origin streams on the device: every block that does
-not read the current frame densely (the residual, and K4 at pads 33/17),
-then the intra-motion blocks wave by wave over a schedule the host
-compacts to the waves that hold them (K7, cuda_wavedec). Its state is the
+not read the current frame densely (K4 at pads 33/17, then K11 in
+cuda_tail: the carry, the residual and the prediction add), then the
+intra-motion blocks wave by wave over a schedule the host compacts to
+the waves that hold them (K7, cuda_wavedec). Its state is the
 fast-mode decoder's (engine.init_state): the ring and the coefficient
 planes; the JAX state's win_* window caches belong to its XLA anchors.
 """
@@ -33,8 +34,8 @@ import torch
 
 from .. import tables
 from ..blocktypes import COPY_BIT, INTRA_BIT, MOTION_BIT
-from . import (cuda_deblock, cuda_inter, cuda_pred, cuda_wave, cuda_wavedec,
-               engine, ops)
+from . import (cuda_deblock, cuda_inter, cuda_pred, cuda_tail, cuda_wave,
+               cuda_wavedec, engine, ops)
 from . import wire as wire_mod
 
 MB = tables.MACROBLOCK_SIZE
@@ -62,15 +63,23 @@ def init_state(aligned_w: int, aligned_h: int, device="cuda"):
         stale_q=z(n, dtype=torch.uint8), stale_var=z(n))
 
 
+def wide_pred_planes(state, frame_index, target, mx, my, sp_pred,
+                     sp_amount, sp_index, zero):
+    """Prediction planes at the reference encoder's inter reach: K4 at
+    pads 33/17."""
+    slot_per_mb = (frame_index + RING - target) % RING
+    return cuda_pred.pred_planes(
+        state["ring_y"], state["ring_u"], state["ring_v"], slot_per_mb, mx,
+        my, sp_pred, sp_amount, sp_index, zero, cuda_pred.WIDE_YPAD,
+        cuda_pred.WIDE_CPAD)
+
+
 def wide_gather_pred(state, frame_index, target, mx, my, sp_pred, sp_amount,
                      sp_index, zero):
     """Prediction blocks at the reference encoder's inter reach
     (wavefront._wide_gather_pred): K4 at pads 33/17."""
-    slot_per_mb = (frame_index + RING - target) % RING
-    py, pu, pv = cuda_pred.pred_planes(
-        state["ring_y"], state["ring_u"], state["ring_v"], slot_per_mb, mx,
-        my, sp_pred, sp_amount, sp_index, zero, cuda_pred.WIDE_YPAD,
-        cuda_pred.WIDE_CPAD)
+    py, pu, pv = wide_pred_planes(state, frame_index, target, mx, my,
+                                  sp_pred, sp_amount, sp_index, zero)
     return (ops.plane_to_blocks(py, MB), ops.plane_to_blocks(pu, MB // 2),
             ops.plane_to_blocks(pv, MB // 2))
 
@@ -270,23 +279,24 @@ def _conformance_decode_core(frame_index, n_active, n_members, tail,
     intra_motion = is_intra & is_motion
     intra_default = is_intra & ~is_motion
 
-    # persistent coefficient planes, the residual of every block
-    coef = engine.carry_coef(state, is_copy, new_coef)
-    qp = table["q_index"].to(I32)
-    res = engine.residual(*engine.coef_blocks(*coef), qp, intra_default)
-
     # dense prediction and reconstruction of the blocks that do not read
-    # the current frame (the intra-motion ones predict 0 here)
+    # the current frame (the intra-motion ones predict 0 here), from the
+    # persistent coefficient planes (K11: the carry, the residual of every
+    # block, kept for the wave loop, and the prediction add)
+    qp = table["q_index"].to(I32)
     target = torch.where(is_intra, 0, table["prediction_target"].to(I32))
     mx = torch.where(is_motion, table["motion_x"].to(I32), 0)
     my = torch.where(is_motion, table["motion_y"].to(I32), 0)
     sp_pred = is_motion & table["sp_pred"]
     sp_index = table["sp_index"].to(I32)
-    pred = wide_gather_pred(
+    pred = wide_pred_planes(
         state, frame_index, target, torch.where(intra_motion, 0, mx),
         torch.where(intra_motion, 0, my), sp_pred & ~intra_motion,
         table["sp_amount"], sp_index, intra_default | intra_motion)
-    rec0 = engine.add_pred(res, pred, is_copy)
+    rec0, coef, res = cuda_tail.decode_tail(
+        new_coef, qp, intra_default, is_copy, pred,
+        stale=(state["coef_y"], state["coef_u"], state["coef_v"]),
+        residual=True)
 
     # the written planes: the dense blocks over the ring slot's content
     # before this frame (stale, copies of the slot: the ring is written
@@ -298,22 +308,19 @@ def _conformance_decode_core(frame_index, n_active, n_members, tail,
     ymask = engine.mb_mask(~intra_motion, aligned_h, aligned_w)
     cmask = ymask[::2, ::2]
     written = tuple(
-        torch.where(mask, ops.blocks_to_plane(r, *old.shape), old)
-        .to(torch.int16) for r, old, mask in zip(rec0, stale,
-                                                 (ymask, cmask, cmask)))
+        torch.where(mask, r, old).to(torch.int16)
+        for r, old, mask in zip(rec0, stale, (ymask, cmask, cmask)))
     if n_active:
         fields = torch.stack([mx, my, sp_pred.to(I32),
                               table["sp_amount"].to(I32), sp_index,
                               is_copy.to(I32)])
-        cuda_wavedec.wave_decode(written, stale,
-                                 tuple(r.contiguous() for r in res), fields,
-                                 bi_t, bj_t, n_active, n_members)
+        cuda_wavedec.wave_decode(written, stale, res, fields, bi_t, bj_t,
+                                 n_active, n_members)
 
     rec_y, rec_u, rec_v = engine.finish_planes(
         state, *(p.to(I32) for p in written), frame_index, is_copy, qp,
         deblock)
-    state["coef_y"], state["coef_u"], state["coef_v"] = (
-        c.to(torch.int16) for c in coef)
+    state["coef_y"], state["coef_u"], state["coef_v"] = coef
     pack = (wire_mod.pack_yuv5d_wire if out_fmt == "yuv5d"
             else wire_mod.pack_yuv_wire)
     return state, pack(rec_y, rec_u, rec_v,

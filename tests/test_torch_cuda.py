@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the CUDA kernels K1-K9 (K4 at both pad
+"""Card-only tests of the port: the CUDA kernels K1-K11 (K4 at both pad
 sets; K1-K4 also with a tile's reference margin and ring halo) against
 their plain versions, and the fast-mode and conformance encoders, the
 wavefront decode and the tiled encoder and decoder on the card against
@@ -15,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from cairo_tpu_torch.gpu import (api, cuda_deblock, cuda_inter, cuda_motion,
-                                 cuda_pred, cuda_wave, cuda_wavedec, deblock,
-                                 ops, shard, tiled, wavefront, wire)
+from cairo_tpu_torch.gpu import (_build, api, cuda_deblock, cuda_inter,
+                                 cuda_motion, cuda_pred, cuda_tail, cuda_wave,
+                                 cuda_wavedec, deblock, engine, ops, shard,
+                                 tiled, wavefront, wire)
 from cairo_tpu_torch.synth import synth_frames
 from util_deblock import KINDS, SIZES, TILE_SIZES, deblock_case
 
@@ -1222,3 +1223,212 @@ def test_subpel_scan_checks_its_arguments(dev):
         with pytest.raises(ValueError):
             cuda_motion.subpel_scan(*call)
     assert cuda_motion.LAUNCHES["subpel_scan"] == launches
+
+
+# ---- K10 encode_tail, K11 decode_tail
+
+TAIL_SIZES = [(1088, 1920), (16, 16), (16, 112), (112, 16), (1088, 480)]
+
+
+def _one_buffer(planes, dtype, dev):
+    """Y, U, V numpy planes as views into one card buffer, as K4 gives its
+    prediction."""
+    buf = torch.as_tensor(np.concatenate([p.reshape(-1) for p in planes])) \
+        .to(dev, dtype)
+    out, o = [], 0
+    for p in planes:
+        out.append(buf[o:o + p.size].view(p.shape))
+        o += p.size
+    return tuple(out)
+
+
+def _tail_case(rng, h, w, kind):
+    """(src, pred) numpy planes: "mixed", sources 0..271 over predictions
+    of recon overshoot; "extreme", residuals at 32767, -32767, 32768
+    (wrapping to -32768) and across the int16 range; "wrap", full-scale
+    +-32767 residuals, whose transformed MBs' s * s and sum of squares
+    wrap int32."""
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    src = [rng.integers(0, 272, s) for s in shapes]
+    if kind == "mixed":
+        pred = [rng.integers(-300, 560, s) for s in shapes]
+    elif kind == "extreme":
+        pred = [np.clip(np.choose(rng.integers(0, 4, s.shape), [
+            s - 32767, s + 32767, s - 32768,
+            rng.integers(-32768, 32768, s.shape)]), -32768, 32767)
+            for s in src]
+    else:
+        pred = [s - np.where(rng.random(s.shape) < 0.5, -1, 1) * 32767
+                for s in src]
+    return src, pred
+
+
+def _tail_flags(rng, n, dev):
+    """is_intra, is_motion, is_copy: every combination the tail meets."""
+    kinds = np.array([(1, 0, 0), (1, 1, 0), (0, 0, 0), (0, 1, 0), (0, 0, 1),
+                      (0, 1, 1)])[rng.integers(0, 6, n)]
+    return tuple(torch.as_tensor(kinds[:, i].astype(bool)).to(dev)
+                 for i in range(3))
+
+
+def _encode_tail_args(dev, rng, h, w, kind="mixed", quality=16,
+                      adaptive=True):
+    n = (h // 16) * (w // 16)
+    src, pred = _tail_case(rng, h, w, kind)
+    coef = [rng.integers(-32768, 32768, p.shape) for p in src]
+    quality = torch.tensor(quality, dtype=torch.int32, device=dev)
+    return (_one_buffer(src, torch.int32, dev),
+            _one_buffer(pred, torch.int32, dev), *_tail_flags(rng, n, dev),
+            quality, adaptive, _one_buffer(coef, torch.int16, dev))
+
+
+def _decode_tail_args(dev, rng, h, w, kind="coded"):
+    n = (h // 16) * (w // 16)
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    if kind == "coded":
+        coef = [np.where(rng.random(s) < 0.3, rng.integers(-40, 41, s), 0)
+                for s in shapes]
+    else:
+        coef = [rng.integers(-32768, 32768, s) for s in shapes]
+    is_intra, is_motion, is_copy = _tail_flags(rng, n, dev)
+    qp = torch.as_tensor(rng.integers(0, 32, n).astype(np.int32)).to(dev)
+    qp = torch.where(is_copy, 0, qp)
+    pred = [rng.integers(-300, 560, s) for s in shapes]
+    stale = [rng.integers(-32768, 32768, s) for s in shapes]
+    return (_one_buffer(coef, torch.int32, dev), qp, is_intra & ~is_motion,
+            is_copy, _one_buffer(pred, torch.int32, dev),
+            _one_buffer(stale, torch.int16, dev))
+
+
+def _flat_tensors(args):
+    return [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+            if torch.is_tensor(t)]
+
+
+def _same_outputs(got, want):
+    if want is None or torch.is_tensor(want):
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert got.dtype == want.dtype and got.is_cuda
+            _eq(got, want)
+        return
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _same_outputs(g, w)
+
+
+def _check_tail(name, args, **kw):
+    """K10 or K11 against its plain version on the same card tensors,
+    exact, twice; the inputs unchanged and one launch counted a call.
+    Returns the kernel's outputs."""
+    kern = getattr(cuda_tail, name)
+    plain = getattr(cuda_tail, name + "_plain")
+    tensors = _flat_tensors(args)
+    before = [t.clone() for t in tensors]
+    launches = cuda_tail.LAUNCHES[name]
+    got = kern(*args, **kw)
+    again = kern(*args, **kw)
+    assert cuda_tail.LAUNCHES[name] == launches + 2
+    want = plain(*args, **kw)
+    _same_outputs(got, want)
+    _same_outputs(again, want)
+    for t, b in zip(tensors, before):
+        _eq(t, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", TAIL_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_encode_tail_matches_plain(dev, size):
+    """At the 1080p grid, one MB, a 1 x 7 and a 7 x 1 grid and a 480-wide
+    tile, adaptive QP on and off."""
+    rng = np.random.default_rng(size[0] * 7 + size[1])
+    for adaptive in (True, False):
+        _check_tail("encode_tail", _encode_tail_args(
+            dev, rng, *size, adaptive=adaptive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "extreme", "wrap"])
+@pytest.mark.parametrize("quality", [1, 16, 31])
+def test_encode_tail_edge_inputs(dev, kind, quality):
+    """Residuals at the int16 edges and transformed MBs whose variance
+    sums wrap int32, at q 1, 16 and 31, adaptive and not."""
+    rng = np.random.default_rng(quality)
+    for adaptive in (True, False):
+        got = _check_tail("encode_tail", _encode_tail_args(
+            dev, rng, 96, 160, kind, quality, adaptive))
+        if not adaptive:
+            assert (got[1] == quality).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", TAIL_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["coded", "int16_range"])
+def test_decode_tail_matches_plain(dev, size, kind):
+    """With and without the carry and the residual blocks, at the sizes
+    of K10's test, on coefficients as a quantizer writes them and over
+    the whole int16 range."""
+    args = _decode_tail_args(dev, np.random.default_rng(size[1]), *size,
+                             kind)
+    for stale in (args[5], None):
+        for residual in (True, False):
+            _check_tail("decode_tail", args[:5], stale=stale,
+                        residual=residual)
+
+
+@pytest.mark.cuda
+def test_decode_tail_residual_is_what_the_wave_decode_reads(dev):
+    """K11's residual blocks equal the ones the wave decode gave K7
+    before K11 (engine.carry_coef, coef_blocks and residual as torch ops
+    on the card), and pass K7's checks."""
+    coef, qp, intra_default, is_copy, pred, stale = _decode_tail_args(
+        dev, np.random.default_rng(5), 1088, 1920)
+    _, carried, res = cuda_tail.decode_tail(coef, qp, intra_default, is_copy,
+                                            pred, stale, residual=True)
+    old = engine.carry_coef(stale, is_copy, coef)
+    want = engine.residual(*engine.coef_blocks(*old), qp, intra_default)
+    for g, w, c, o in zip(res, want, carried, old):
+        _eq(g, w.contiguous())
+        _eq(c, o.to(torch.int16))
+    n = qp.numel()
+    for t, size in zip(res, (16, 8, 8)):
+        _build.check(t, "res", torch.int32, (n, size, size))
+
+
+@pytest.mark.cuda
+def test_tail_wrappers_check_their_arguments(dev):
+    rng = np.random.default_rng(8)
+    enc = list(_encode_tail_args(dev, rng, 48, 80))
+    dec = list(_decode_tail_args(dev, rng, 48, 80))
+    src, pred, coef = enc[0], enc[1], enc[7]
+    bad_enc = [
+        (0, (src[0].to(torch.int16),) + src[1:]),
+        (0, (src[0][:-16],) + src[1:]),
+        (1, (pred[0].t().contiguous().t(),) + pred[1:]),
+        (1, (pred[0][:, :64],) + pred[1:]),
+        (2, enc[2].to(torch.int32)),
+        (4, enc[4][:-1]),
+        (7, (coef[0].to(torch.int32),) + coef[1:]),
+        (7, (coef[0].cpu(),) + coef[1:]),
+    ]
+    bad_dec = [
+        (0, (dec[0][0].to(torch.int16),) + dec[0][1:]),
+        (1, dec[1].to(torch.int64)),
+        (1, dec[1][:-1]),
+        (2, dec[2].to(torch.int32)),
+        (4, (dec[4][0][:, ::2].contiguous(),) + dec[4][1:]),
+        (5, (dec[5][0].to(torch.int32),) + dec[5][1:]),
+    ]
+    launches = dict(cuda_tail.LAUNCHES)
+    for i, value in bad_enc:
+        call = list(enc)
+        call[i] = value
+        with pytest.raises(ValueError):
+            cuda_tail.encode_tail(*call)
+    for i, value in bad_dec:
+        call = list(dec)
+        call[i] = value
+        with pytest.raises(ValueError):
+            cuda_tail.decode_tail(*call[:5], stale=call[5])
+    assert cuda_tail.LAUNCHES == launches
