@@ -24,14 +24,20 @@ Phases, one line each with the elapsed seconds:
      one tile column; all, no and some copy MBs, q 0 and 31, samples far
      beyond int16, a uint8 q map); CUDA-event times and each kernel's
      device time from a torch.profiler trace, K8's bound and ptxas
-     registers, shared memory and spills; K9 subpel_scan against its plain
-     version at 1920x1088 on the arguments K1-K3 give it (smooth content
-     a quarter-pel step past a full-pel shift, so that sub-pel candidates
-     are taken; the windows views into K3's one buffer), at a tile origin,
-     on random vectors, on windows over the whole int16 range with a MAD
-     threshold that lets the copy branch take every lower MAD, with all
-     MBs frozen and on flat planes where every candidate ties, inputs
-     unchanged, with its times, bound and ptxas usage; K10 encode_tail
+     registers, shared memory and spills; K9 as the main path launches it,
+     every reference and the classification merge in one launch
+     (subpel_classify), against its plain version at 1920x1088 on the
+     three references K1-K3 search (smooth content a quarter-pel step past
+     a full-pel shift, so that sub-pel candidates are taken), on two and
+     one of them, at a tile origin, on random vectors over windows of the
+     whole int16 range with a MAD threshold that lets the copy branch take
+     every lower MAD, and with no reference (every MB intra), one launch a
+     call; and its one-reference entry (subpel_scan) on the arguments
+     K1-K3 give it (the windows views into K3's one buffer), at a tile
+     origin, on random vectors, on windows over the whole int16 range,
+     with all MBs frozen and on flat planes where every candidate ties;
+     inputs unchanged, with both entries' times and bounds and its ptxas
+     usage; K10 encode_tail
      and K11 decode_tail against their plain versions at 1920x1088 on the
      arguments the main path gives them (GpuEncoder and GpuDecoder on an
      intra and an inter frame, each call's arguments kept) and on edge
@@ -45,8 +51,8 @@ Phases, one line each with the elapsed seconds:
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
      frame may take the host decode path, every kernel must have been
-     launched, K3 once per reference search (as often as K2), K9 three
-     times per inter frame (once per reference), K8 once per encoded and
+     launched, K3 once per reference search (as often as K2), K9 once
+     per inter frame (for all three references), K8 once per encoded and
      once per decoded frame, K10 once per encoded and K11 once per
      decoded frame;
   4. CPU against card: 3 frames at 176x144 encoded with device="cpu" and
@@ -92,7 +98,7 @@ Phases, one line each with the elapsed seconds:
      frames (measure_pipelined); fails unless the chunks and RGB equal the
      loop's, no frame took the host decoder and every kernel of the path
      was launched in the pipelined run (its counts set to 0 just before
-     it), K9 three times per fast inter frame, K10 once per fast encoded
+     it), K9 once per fast inter frame, K10 once per fast encoded
      frame and K11 once per decoded frame of either path; prints both fps
      (as bench.py counts them: the yield intervals of the measured
      frames) and the per-stage medians of each run;
@@ -106,7 +112,7 @@ Phases, one line each with the elapsed seconds:
      encoded alone); 352x288 over 4 tiles (the card's chunks equal the
      CPU's); fails unless every comparison holds and K1-K4 and K8 were
      launched in each configuration, K1-K4 with the ring halo, K9 once
-     per tile and reference of each inter frame, K10 once per tile of each
+     per tile of each inter frame, K10 once per tile of each
      encoded frame and K11 once per tile of each decoded one; prints the
      per-frame fps of tiled encode and decode at each tile count. Phase 2
      also holds K1-K4 at a tile's halo'd shapes (1088 x (480 + 64) luma)
@@ -142,7 +148,7 @@ with one labelled range per pipeline stage: host
 and device milliseconds per stage, the port's kernels' device time by
 kernel name, and all kernels' device time against the unprofiled wall
 time of the same work (busy share); for the fast frame, its CUDA launches
-beside the 1,592 it took before K10 and K11.
+beside the 517 it took before K9 took every reference and the merge.
 """
 
 from __future__ import annotations
@@ -484,21 +490,18 @@ def phase_kernels(torch, np, gpu):
 
 # references a fast inter frame searches (RING - 1), one K9 launch each
 REFS = 3
-# integer operations per sample of a sub-pel candidate K9 must do: the
-# blend (sum, rounding, truncation, wrap16), |src - blend|, sum and max
-SUBPEL_OPS_PER_SAMPLE = 12
+# integer operations per sample of a sub-pel candidate, counted from
+# csrc/subpel.cu's dhalf and dquarter: the blend's sum, its sign, src -
+# blend with the rounding folded in, the shift, |.|, the SAD's sum (luma
+# only) and the MAD's max
+SUBPEL_OPS_LUMA = 7
+SUBPEL_OPS_CHROMA = 6
+SUBPEL_OPS_PER_MB = 256 * SUBPEL_OPS_LUMA + 128 * SUBPEL_OPS_CHROMA
 
 
-def subpel_work(args):
-    """(bytes, operations) K9 must spend on subpel_scan(*args): the
-    windows, source planes and per-MB fields read once, the outputs
-    written once; the blends of the candidates that may be taken (a
-    direction whose block stays in the frame, of an MB not frozen), 2
-    amounts x 384 samples each."""
-    wins, planes, mx, my, _, _, frozen, px, py, x0, width, height, _ = args
-    n = mx.numel()
-    nbytes = (sum(t.numel() * 4 for t in wins + planes) + n * (6 * 4 + 1)
-              + n * (3 * 4 + 4))
+def valid_candidates(mx, my, frozen, px, py, x0, width, height):
+    """The sub-pel directions of the MBs that K9 may take: the block
+    stays in the frame and the MB is not frozen."""
     valid = 0
     for dj in (-1, 0, 1):
         for di in (-1, 0, 1):
@@ -507,7 +510,71 @@ def subpel_work(args):
             gx, gy = x0 + px + mx + di, py + my + dj
             valid += int(((gx >= 0) & (gx <= width - 16) & (gy >= 0)
                           & (gy <= height - 16) & ~frozen).sum())
-    return nbytes, valid * 2 * 384 * SUBPEL_OPS_PER_SAMPLE
+    return valid
+
+
+def subpel_work(args):
+    """(bytes, operations) K9 must spend on subpel_scan(*args): the
+    windows, source planes and per-MB fields read once, the outputs
+    written once; the blends of the candidates that may be taken (a
+    direction whose block stays in the frame, of an MB not frozen), 2
+    amounts x 384 samples each (SUBPEL_OPS_PER_MB)."""
+    wins, planes, mx, my, _, _, frozen, px, py, x0, width, height, _ = args
+    n = mx.numel()
+    nbytes = (sum(t.numel() * 4 for t in wins + planes) + n * (6 * 4 + 1)
+              + n * (3 * 4 + 4))
+    valid = valid_candidates(mx, my, frozen, px, py, x0, width, height)
+    return nbytes, valid * 2 * SUBPEL_OPS_PER_MB
+
+
+def classify_work(args):
+    """(bytes, operations) K9 must spend on subpel_classify(*args): each
+    reference's windows and K2 fields, the source planes and MB
+    positions read once, the 11 outputs (26 bytes an MB) written once;
+    each reference's candidates that may be taken, as subpel_work counts
+    them, and the intra SAD's 2 operations a luma sample."""
+    refs, planes, px, py, x0, width, height, _ = args
+    n = px.numel()
+    nbytes = sum(t.numel() * 4 for t in planes) + n * (2 * 4 + 26)
+    ops = n * 256 * 2
+    for wins, mx, my, _, _, frozen in refs:
+        nbytes += sum(t.numel() * 4 for t in wins) + n * (4 * 4 + 1)
+        ops += valid_candidates(mx, my, frozen, px, py, x0, width,
+                                height) * 2 * SUBPEL_OPS_PER_MB
+    return nbytes, ops
+
+
+def smooth_ring(torch, rng, dev, shapes, lo, hi):
+    """Planes of `shapes` (Y, U, V), 4 ring slots each, of smooth random
+    content in [lo, hi], int16: sub-pel blends of it predict its
+    fractional shifts well."""
+    def smooth(h, w):
+        yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+        xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+        f = torch.zeros((h, w), device=dev)
+        for fx, fy, ph, pv in rng.uniform(0.05, 0.3, (3, 4)) * [1, 1, 20,
+                                                                  20]:
+            f += torch.sin(fx * xx + ph) * torch.cos(fy * yy + pv)
+        f = (f - f.min()) / (f.max() - f.min())
+        return torch.round(lo + (hi - lo) * f).to(torch.int32)
+
+    return tuple(torch.stack([smooth(*s) for _ in range(4)])
+                 .to(torch.int16) for s in shapes)
+
+
+def quarter_shifted(torch, rng, dev, ring):
+    """Source planes that show ring slot 1 a quarter-pel step past (3, -2)
+    (chroma (1, -1)), plus noise in -2..2, clipped to 0..255."""
+    out = []
+    for i, r in enumerate(ring):
+        dx, dy = (3, -2) if i == 0 else (1, -1)
+        a = torch.roll(r[1].to(torch.int32), (-dy, -dx), (0, 1))
+        b = torch.roll(r[1].to(torch.int32), (-dy - 1, -dx - 1), (0, 1))
+        noise = torch.as_tensor(rng.integers(-2, 3, a.shape),
+                                dtype=torch.int32, device=dev)
+        out.append(((3 * a + b + 2) // 4 + noise).clamp(0, 255)
+                   .contiguous())
+    return tuple(out)
 
 
 def phase_kernels_subpel(torch, np, gpu, H=1088, W=1920):
@@ -528,31 +595,11 @@ def phase_kernels_subpel(torch, np, gpu, H=1088, W=1920):
     shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
     slot = torch.tensor([1], dtype=torch.int32, device=dev)
 
-    def smooth(h, w, lo, hi):
-        yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
-        xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
-        f = torch.zeros((h, w), device=dev)
-        for fx, fy, ph, pv in rng.uniform(0.05, 0.3, (3, 4)) * [1, 1, 20,
-                                                                  20]:
-            f += torch.sin(fx * xx + ph) * torch.cos(fy * yy + pv)
-        f = (f - f.min()) / (f.max() - f.min())
-        return torch.round(lo + (hi - lo) * f).to(torch.int32)
-
     def ring_of(lo, hi):
-        return tuple(torch.stack([smooth(*s, lo, hi) for _ in range(4)])
-                     .to(torch.int16) for s in shapes)
+        return smooth_ring(torch, rng, dev, shapes, lo, hi)
 
     def source(ring):
-        out = []
-        for i, r in enumerate(ring):
-            dx, dy = (3, -2) if i == 0 else (1, -1)
-            a = torch.roll(r[1].to(torch.int32), (-dy, -dx), (0, 1))
-            b = torch.roll(r[1].to(torch.int32), (-dy - 1, -dx - 1), (0, 1))
-            noise = torch.as_tensor(rng.integers(-2, 3, a.shape),
-                                    dtype=torch.int32, device=dev)
-            out.append(((3 * a + b + 2) // 4 + noise).clamp(0, 255)
-                       .contiguous())
-        return tuple(out)
+        return quarter_shifted(torch, rng, dev, ring)
 
     def searched(ring, src, x0, width, thr):
         cmax = cm.chroma_max_maps(src[1], src[2], ring[1][1], ring[2][1])
@@ -625,13 +672,128 @@ def phase_kernels_subpel(torch, np, gpu, H=1088, W=1920):
         bytes=nbytes, ops=ops, max_abs_err=err, taken=taken)
 
 
+def phase_kernels_classify(torch, np, gpu, H=1088, W=1920):
+    """K9 as the main path launches it, every reference and the merge in
+    one launch (cuda_motion.subpel_classify), against its plain version at
+    1080p, exact: the three references of frame 2 (slots 1, 0, 3) that
+    K1-K3 search on a smooth ring whose slot 1 the source shows a
+    quarter-pel step past (3, -2), plus noise; the first two and the
+    first alone; a tile origin; random vectors over windows of the whole
+    int16 range with a MAD threshold that lets the copy branch take every
+    lower MAD; no reference (every MB intra). Each call launches K9 once
+    and leaves its inputs as they were. Returns its record (timed on the
+    first case)."""
+    cm, cp = gpu["cuda_motion"], gpu["cuda_pred"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 18)
+    n = (H // 16) * (W // 16)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    px, py = (idx % (W // 16)) * 16, (idx // (W // 16)) * 16
+    shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+
+    def ring_of(lo, hi):
+        return smooth_ring(torch, rng, dev, shapes, lo, hi)
+
+    def source(ring):
+        return quarter_shifted(torch, rng, dev, ring)
+
+    def slot_of(offset):
+        return torch.tensor([(2 + 4 - offset) % 4], dtype=torch.int32,
+                            device=dev)
+
+    def searched(ring, src, x0, width, thr):
+        refs = []
+        for offset in range(1, REFS + 1):
+            s = int(slot_of(offset))
+            cmax = cm.chroma_max_maps(src[1], src[2], ring[1][s], ring[2][s])
+            mx, my, sad, mad, frozen = cm.dense_select(
+                src[0], ring[0][s], cmax, x0, width, H, thr)
+            refs.append((cp.gather_windows_yuv(ring, slot_of(offset), mx,
+                                               my), mx, my, sad, mad, frozen))
+        return refs
+
+    def drawn(ring, mad0):
+        def i32(lo, hi):
+            return torch.as_tensor(rng.integers(lo, hi, n), dtype=torch.int32,
+                                   device=dev)
+        refs = []
+        for offset in range(1, REFS + 1):
+            mx, my = i32(-16, 17), i32(-16, 17)
+            refs.append((cp.gather_windows_yuv(ring, slot_of(offset), mx, my),
+                         mx, my, i32(0, 20000), torch.full_like(mx, mad0),
+                         torch.as_tensor(rng.random(n) < 0.2, device=dev)))
+        return refs
+
+    thr = torch.tensor(5, dtype=torch.int32, device=dev)  # q16
+    big = torch.tensor(1 << 20, dtype=torch.int32, device=dev)
+    ring = ring_of(-300, 560)
+    src = source(ring)
+    wide = ring_of(-32768, 32767)
+    main = searched(ring, src, 0, W, thr)
+    cases = [("main path", (main, src, px, py, 0, W, H, thr)),
+             ("two references", (main[:2], src, px, py, 0, W, H, thr)),
+             ("one reference", (main[:1], src, px, py, 0, W, H, thr)),
+             ("tile x0", (searched(ring, src, 64, W + 160, thr), src, px, py,
+                          64, W + 160, H, thr)),
+             ("int16 range, copy branch", (drawn(wide, 1 << 30),
+                                           source(wide), px, py, 0, W, H,
+                                           big)),
+             ("no reference", ([], src, px, py, 0, W, H, thr))]
+
+    def tensors(args):
+        return flat_tensors([x for ref in args[0] for x in ref]
+                            + list(args[1:]), {})
+
+    err, targets = 0, {}
+    for label, args in cases:
+        inputs = [t.clone() for t in tensors(args)]
+        before = cm.LAUNCHES["subpel_scan"]
+        got = cm.subpel_classify(*args)
+        torch.cuda.synchronize()
+        if cm.LAUNCHES["subpel_scan"] - before != 1:
+            fail(f"K9 subpel_classify ({label}): "
+                 f"{cm.LAUNCHES['subpel_scan'] - before} launches counted "
+                 f"for one call")
+        want = cm.subpel_classify_plain(*args)
+        if list(got) != list(want):
+            fail(f"K9 subpel_classify ({label}): other fields than the "
+                 f"plain version's")
+        err = max(err, compare(torch, f"K9 subpel_classify ({label})",
+                               tuple(got.values()), tuple(want.values())))
+        if any(not torch.equal(a, b)
+               for a, b in zip(inputs, tensors(args))):
+            fail(f"K9 subpel_classify ({label}): an input changed")
+        targets[label] = np.bincount(got["target"].cpu().numpy(),
+                                     minlength=REFS + 1).tolist()
+    if not all(targets["main path"][1:]):
+        fail(f"K9 subpel_classify: MBs per target on the main path "
+             f"{targets['main path']} (every reference taken somewhere "
+             f"expected)")
+    if targets["no reference"][0] != n:
+        fail(f"K9 subpel_classify: MBs per target with no reference "
+             f"{targets['no reference']} (all intra expected)")
+    log(f"K9 merged: equal to the plain version on "
+        f"{', '.join(c[0] for c in cases)}; MBs per target (intra, offsets "
+        f"1..{REFS}) {targets}")
+    args = cases[0][1]
+    nbytes, ops = classify_work(args)
+    return dict(
+        ms=cuda_ms(torch, lambda: cm.subpel_classify(*args), 10),
+        device_ms=device_ms(torch, lambda: cm.subpel_classify(*args),
+                            "subpel_scan_kernel"),
+        plain_ms=cuda_ms(torch, lambda: cm.subpel_classify_plain(*args), 3),
+        bytes=nbytes, ops=ops, max_abs_err=err, targets=targets)
+
+
 # integer operations per sample of K10 and K11, counted from csrc/tail.cu
-# (one per +, -, *, /, shift or select; wrap16 one): K10 the residual 2,
-# the forward DCT's two passes 40, the variance 3 (its 5 on the 256 luma
-# samples of 384), quantization 8, the carry 1, dequantization 5, the
-# inverse DCT's two passes 54 and the prediction add 3; K11 the carry 1,
-# dequantization 5, the inverse DCT 54 and the prediction add 3
-ENCODE_TAIL_OPS_PER_SAMPLE = 116
+# (one per +, -, *, /, shift or select; wrap16 one; K10's divisions by
+# reciprocal 5: the multiply-high, a subtraction, two shifts and an add):
+# K10 the residual 2, the forward DCT's two passes 30 (outputs k and
+# 7 - k paired), the variance 3 (its 5 on the 256 luma samples of 384),
+# quantization 20, the carry 1, dequantization 8, the inverse DCT's two
+# passes 30 and the prediction add 3; K11 the carry 1, dequantization 5,
+# the inverse DCT 54 and the prediction add 3
+ENCODE_TAIL_OPS_PER_SAMPLE = 97
 DECODE_TAIL_OPS_PER_SAMPLE = 63
 
 
@@ -1483,9 +1645,9 @@ def phase_pipelined(gpu, smi):
             if not rec[f"{path}_launches"][name]:
                 fail(f"phase 7: {path} pipelined run never launched {name}")
         k9 = rec[f"{path}_launches"]["subpel_scan"]
-        if path == "fast" and k9 != REFS * (n - 1):
+        if path == "fast" and k9 != n - 1:
             fail(f"phase 7: the fast pipelined run launched K9 {k9} times for "
-                 f"{n - 1} inter frames ({REFS} a frame expected)")
+                 f"{n - 1} inter frames (once a frame expected)")
         k10 = rec[f"{path}_launches"]["encode_tail"]
         if path == "fast" and k10 != n:
             fail(f"phase 7: the fast pipelined run launched K10 {k10} times "
@@ -1604,10 +1766,10 @@ def phase_main(torch, np, gpu):
         fail(f"main path: {launches['gather_windows']} K3 launches for "
              f"{launches['dense_select']} reference searches (one three-plane "
              f"launch each expected)")
-    if launches["subpel_scan"] != REFS * (len(frames) - 1):
+    if launches["subpel_scan"] != len(frames) - 1:
         fail(f"main path: {launches['subpel_scan']} K9 launches for "
-             f"{len(frames) - 1} fast inter frames ({REFS} a frame, one per "
-             f"reference, expected)")
+             f"{len(frames) - 1} fast inter frames (one a frame, for all "
+             f"{REFS} references, expected)")
     mse = float(np.mean([np.mean((o.astype(np.float64) - f) ** 2)
                          for o, f in zip(outs, frames)]))
     summary = dict(
@@ -1697,10 +1859,10 @@ def phase_tiled(torch, np, gpu, smi):
 
     def launched(label, searches, encodes, decodes):
         """Fails unless K1-K4 (with the halo) and K8 launched since reset(),
-        K9 once per tile of each inter frame's `searches` reference
-        searches, K10 once per tile of each of the `encodes` tile frames
-        and K11 once per tile of each of the `decodes`; adds the counts to
-        the phase's."""
+        K9 once per tile of each of the `searches` inter tile frames (for
+        all their references), K10 once per tile of each of the `encodes`
+        tile frames and K11 once per tile of each of the `decodes`; adds
+        the counts to the phase's."""
         counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
         halo = {k: v for mod in mods[:2]
                 for k, v in mod.HALO_LAUNCHES.items()}
@@ -1713,7 +1875,7 @@ def phase_tiled(torch, np, gpu, smi):
                      f"ring halo")
         if counts["subpel_scan"] != searches:
             fail(f"phase 8 ({label}): K9 launched {counts['subpel_scan']} "
-                 f"times for {searches} tile reference searches (one each "
+                 f"times for {searches} inter tile frames (one each "
                  f"expected)")
         if counts["encode_tail"] != encodes:
             fail(f"phase 8 ({label}): K10 launched {counts['encode_tail']} "
@@ -1766,7 +1928,7 @@ def phase_tiled(torch, np, gpu, smi):
         if not np.array_equal(rgb, enc.recon_rgb()):
             fail(f"phase 8: 1-tile RGB of frame {i} differs from recon_rgb()")
     summary["1_tile"] = dict(
-        launches=launched("1 tile", REFS * 4, 5, 5),
+        launches=launched("1 tile", 4, 5, 5),
         inter_encode_fps=fps(enc_s[1:]),
         inter_decode_fps=fps(dec_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s],
@@ -1801,7 +1963,7 @@ def phase_tiled(torch, np, gpu, smi):
         fail("phase 8: 4-tile RGB of the traced frame differs from "
              "recon_rgb()")
     summary["4_tiles"] = dict(
-        launches=launched("4 tiles", REFS * 5 * 4, 6 * 4, 6 * 4),
+        launches=launched("4 tiles", 5 * 4, 6 * 4, 6 * 4),
         inter_encode_fps=fps(enc_s[1:]),
         inter_decode_fps=fps(dec_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s],
@@ -1826,7 +1988,7 @@ def phase_tiled(torch, np, gpu, smi):
         batched.append(chunks)
         enc_s.append(s_enc)
     summary["2_gops_x_2_tiles"] = dict(
-        launches=launched("2 GOPs x 2 tiles", REFS * 4 * 2 * 2, 5 * 2 * 2, 0),
+        launches=launched("2 GOPs x 2 tiles", 4 * 2 * 2, 5 * 2 * 2, 0),
         inter_batch_fps=fps(enc_s[1:]),
         encode_ms=[round(x * 1e3, 1) for x in enc_s])
     reset()
@@ -1837,7 +1999,7 @@ def phase_tiled(torch, np, gpu, smi):
             if alone.encode(f) != batched[i][g]:
                 fail(f"phase 8: GOP {g} frame {i} differs from the GOP "
                      f"encoded alone")
-    launched("each GOP alone, 2 tiles", REFS * 4 * 2 * 2, 5 * 2 * 2, 0)
+    launched("each GOP alone, 2 tiles", 4 * 2 * 2, 5 * 2 * 2, 0)
 
     # ---- 352x288 over 4 tiles: card against CPU
     reset()
@@ -1851,7 +2013,7 @@ def phase_tiled(torch, np, gpu, smi):
             fail(f"phase 8: 352x288 4-tile chunks of frame {i} differ "
                  f"between the CPU and the card")
     summary["352x288_4_tiles"] = dict(
-        launches=launched("352x288, 4 tiles", REFS * 2 * 4, 3 * 4, 0))
+        launches=launched("352x288, 4 tiles", 2 * 4, 3 * 4, 0))
     summary["seconds"] = time.perf_counter() - t_phase
     return total, summary
 
@@ -2124,8 +2286,8 @@ PROFILE_STAGES = (
     ("native", "decode_slice"), ("native", "extract_coo"),
     ("native", "yuv5d_wire_to_rgb"), ("wire", "unpack_yuv5d"),
     ("wire", "pack_encode_wire"), ("wire", "pack_yuv5d_wire"),
-    ("motion", "inter_search"), ("cuda_motion", "chroma_max_maps"),
-    ("cuda_motion", "dense_select"), ("cuda_motion", "subpel_scan"),
+    ("motion", "full_pel"), ("cuda_motion", "chroma_max_maps"),
+    ("cuda_motion", "dense_select"), ("cuda_motion", "subpel_classify"),
     ("cuda_pred", "gather_windows_yuv"),
     ("cuda_pred", "pred_planes"), ("cuda_tail", "encode_tail"),
     ("cuda_tail", "decode_tail"), ("cuda_deblock", "deblock_frame"),
@@ -2139,9 +2301,9 @@ PORT_KERNELS = ("chroma_max_kernel", "dense_select_kernel",
                 "deblock_kernel", "subpel_scan_kernel", "encode_tail_kernel",
                 "decode_tail_kernel")
 # CUDA launches of a traced fast inter frame (encode + decode, 1080p q16)
-# before the transform tail became two kernels (K10, K11), on NVIDIA H100
-# 80GB HBM3 (5,981 before K9)
-FAST_FRAME_LAUNCHES_BEFORE_K10 = 1592
+# before K9 took every reference and the classification merge, on NVIDIA
+# H100 80GB HBM3 (1,592 before K10 and K11, 5,981 before K9)
+FAST_FRAME_LAUNCHES_BEFORE_MERGE = 517
 
 
 def profile_frame(torch, smi, label, warm, timed, traced, before=None):
@@ -2181,7 +2343,8 @@ def profile_frame(torch, smi, label, warm, timed, traced, before=None):
         f"of the unprofiled wall")
     if before is not None:
         log(f"profile: {label}: {sum(e.count for e in kernels)} CUDA launches "
-            f"against {before} before K10 and K11")
+            f"against {before} before K9 took every reference and the "
+            f"merge")
     log("profile: stage | host ms (profiled) | device ms of the ATen "
         "kernels inside it | calls")
     rows = sorted((e for e in events if e.key.startswith("stage.")
@@ -2241,7 +2404,7 @@ def phase_profile(torch, gpu, smi):
         torch, smi, "one 1920x1080 q16 inter frame encoded + decoded",
         lambda: [fast(enc, dec, f) for f in frames[:2]],
         lambda: fast(enc, dec, frames[2]), lambda: fast(enc, dec, frames[3]),
-        before=FAST_FRAME_LAUNCHES_BEFORE_K10)
+        before=FAST_FRAME_LAUNCHES_BEFORE_MERGE)
 
     chunks = []
 
@@ -2313,7 +2476,14 @@ def main():
     usage = ptxas_usage(_build.build_log(_build.kernel_library_path()))
     recs = phase_kernels(torch, np, gpu)
     recs["K8"] = phase_kernels_deblock(torch, gpu)
-    recs["K9"] = phase_kernels_subpel(torch, np, gpu)
+    single = phase_kernels_subpel(torch, np, gpu)
+    recs["K9"] = phase_kernels_classify(torch, np, gpu)
+    recs["K9"].update({f"single_{k}": v for k, v in single.items()
+                       if k in ("ms", "device_ms", "plain_ms", "bytes",
+                                "ops")})
+    recs["K9"]["taken"] = single["taken"]
+    recs["K9"]["max_abs_err"] = max(recs["K9"]["max_abs_err"],
+                                    single["max_abs_err"])
     recs.update(phase_kernels_tail(torch, np, gpu))
     for k, r in recs.items():
         dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
@@ -2331,12 +2501,17 @@ def main():
     k9 = recs["K9"]
     if "subpel_scan_kernel" not in usage:
         fail("ptxas reported nothing for subpel_scan_kernel")
-    log(f"phase 2: K9 at 1920x1088 ({k9['bytes'] / 1e6:.1f} MB, "
-        f"{k9['ops'] / 1e9:.3f} G integer operations): {k9['ms']:.4f} ms, "
-        f"kernel alone {k9['device_ms']:.4f} ms (plain {k9['plain_ms']:.3f} "
-        f"ms), bound {k9['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) / "
-        f"{k9['ops'] / INT_OPS_PER_S * 1e3:.4f} ms (operations); "
-        f"{usage['subpel_scan_kernel']} on {smi}")
+    for label, pre in (("every reference and the merge", ""),
+                       ("one reference", "single_")):
+        log(f"phase 2: K9 at 1920x1088, {label} "
+            f"({k9[pre + 'bytes'] / 1e6:.1f} MB, "
+            f"{k9[pre + 'ops'] / 1e9:.3f} G integer operations): "
+            f"{k9[pre + 'ms']:.4f} ms, kernel alone "
+            f"{k9[pre + 'device_ms']:.4f} ms (plain "
+            f"{k9[pre + 'plain_ms']:.3f} ms), bound "
+            f"{k9[pre + 'bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) / "
+            f"{k9[pre + 'ops'] / INT_OPS_PER_S * 1e3:.4f} ms (operations); "
+            f"{usage['subpel_scan_kernel']} on {smi}")
     for k, kname in (("K10", "encode_tail_kernel"),
                      ("K11", "decode_tail_kernel")):
         r = recs[k]
@@ -2525,9 +2700,11 @@ def main():
         # K3's luma and chroma calls alone beside its three-plane launch,
         # K7's intra frame beside its inter frame
         kernels[-1].update({k: v for k, v in r.items()
-                            if k.startswith(("luma_", "chroma_", "intra_"))})
+                            if k.startswith(("luma_", "chroma_", "intra_",
+                                             "single_"))})
         if k == "K9":
             kernels[-1]["taken_by_case"] = r["taken"]
+            kernels[-1]["targets_by_case"] = r["targets"]
     # K8's and K11's launches in phase 3 (fast encode and decode) and
     # phase 5 (conformance encode and the GpuDecoder of its stream)
     kernels[list(meta).index("K8")]["launches_by_path"] = \

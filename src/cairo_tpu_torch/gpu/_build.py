@@ -191,6 +191,25 @@ def check(t, name: str, dtype, shape=None):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_many(specs, index: int):
+    """Raises as check() does unless each (tensor, name, dtypes, shape) of
+    `specs` is a contiguous tensor of one of `dtypes` and `shape` on CUDA
+    device `index`; the common case reads a few attributes a tensor (a
+    launch's host time, where a wrapper takes many tensors)."""
+    import torch
+
+    for t, name, dtypes, shape in specs:
+        if (isinstance(t, torch.Tensor) and t.dtype in dtypes
+                and t.shape == shape and t.is_cuda
+                and t.get_device() == index and t.is_contiguous()):
+            continue
+        if isinstance(t, torch.Tensor) and t.dtype in dtypes:
+            check(t, name, t.dtype, shape)
+        else:
+            check(t, name, dtypes[0], shape)
+        raise ValueError(f"{name}: on {t.device}, expected cuda:{index}")
+
+
 def launch(fn, device, *args):
     """Launches on the current stream of `device`; raises on a CUDA error
     returned by the launcher (a launch the runtime refused never runs)."""

@@ -36,11 +36,13 @@ run can show that the tiled path reached the kernels.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from .. import tables
-from ..blocktypes import sp_dir_to_index
+from ..blocktypes import COPY_BIT, INTRA_BIT, MOTION_BIT, sp_dir_to_index
 from . import _build, ops
 
 MB = tables.MACROBLOCK_SIZE
@@ -346,39 +348,155 @@ def subpel_scan(wins, src_planes, mx, my, best_sad, best_mad, frozen, px,
     and frozen (bool) from K2; px, py: (N,) int32 MB positions within the
     planes (the MB grid, raster order); x0, width, height: the tile's
     origin and the frame the candidates must stay in; mad_thr: int32
-    scalar tensor, read on the device."""
+    scalar tensor, read on the device. On the card: K9 with one
+    reference and the merge off."""
     if mx.device.type == "cpu":
         return subpel_scan_plain(wins, src_planes, mx, my, best_sad,
                                  best_mad, frozen, px, py, x0, width, height,
                                  mad_thr)
+    n, dev, thr = _check_subpel(src_planes, px, py, mad_thr)
+    _check_reference((wins, mx, my, best_sad, best_mad, frozen), n, "",
+                     dev.index)
+    sad, mad, sp_index = torch.empty((3, n), dtype=I32, device=dev).unbind(0)
+    flags = torch.empty((4, n), dtype=torch.bool, device=dev)
+    sp_pred, sp_amount, is_motion, is_copy = flags.unbind(0)
+    _launch_subpel([(wins, mx, my, best_sad, best_mad, frozen)], False,
+                   src_planes, px, py, thr, x0, width, height,
+                   (sad, mad, sp_index, sp_pred, sp_amount, is_motion,
+                    is_copy) + (None,) * 5)
+    return dict(sad=sad, mad=mad, is_motion=is_motion, is_copy=is_copy,
+                sp_pred=sp_pred, sp_amount=sp_amount, sp_index=sp_index)
+
+
+# the fields of subpel_classify's best, in the order of the dict
+# tpu/engine.py _classify_inter returns
+CLASSIFY_FIELDS = ("sad", "is_copy", "is_motion", "is_intra", "target",
+                   "motion_x", "motion_y", "sp_pred", "sp_amount",
+                   "sp_index")
+
+
+def subpel_classify_plain(refs, src_planes, px, py, x0, width, height,
+                          mad_thr):
+    """subpel_scan per reference, then the merge (encode.cpp:17-67;
+    tpu/engine.py:107-157) in torch."""
+    n, dev = px.shape[0], px.device
+    zi = torch.zeros(n, dtype=I32, device=dev)
+    zb = torch.zeros(n, dtype=torch.bool, device=dev)
+    best = dict(sad=_src_blocks(src_planes, px, py)[0].abs().sum(
+                    dim=(1, 2), dtype=I32),
+                is_copy=zb, is_motion=zb,
+                is_intra=torch.ones(n, dtype=torch.bool, device=dev),
+                target=zi, motion_x=zi, motion_y=zi, sp_pred=zb,
+                sp_amount=zb, sp_index=zi)
+    # on CPU tensors through subpel_scan, whose CPU path is this same plain
+    # scan, so that a count of its calls shows one scan per reference
+    scan = subpel_scan if px.device.type == "cpu" else subpel_scan_plain
+    for offset, (wins, mx, my, sad, mad, frozen) in enumerate(refs, 1):
+        cand = scan(wins, src_planes, mx, my, sad, mad, frozen, px, py, x0,
+                    width, height, mad_thr)
+        cand.update(motion_x=mx, motion_y=my)
+        take = torch.where(cand["is_copy"] != best["is_copy"],
+                           cand["is_copy"], cand["sad"] < best["sad"])
+        for k in ("sad", "is_copy", "is_motion", "motion_x", "motion_y",
+                  "sp_pred", "sp_amount", "sp_index"):
+            best[k] = torch.where(take, cand[k], best[k])
+        best["is_intra"] = best["is_intra"] & ~take
+        best["target"] = torch.where(take, offset, best["target"])
+    best["block_type"] = (best["is_intra"].to(I32) * INTRA_BIT
+                          | best["is_motion"].to(I32) * MOTION_BIT
+                          | best["is_copy"].to(I32) * COPY_BIT
+                          ).to(torch.uint8)
+    return best
+
+
+def subpel_classify(refs, src_planes, px, py, x0, width, height, mad_thr):
+    """The fast classification of every MB (encode.cpp:17-67, fast mode;
+    tpu/engine.py _classify_inter): the sub-pel scan of each reference
+    (subpel_scan), in offset order, merged into a best that starts as
+    intra with SAD sum |src_y| over the MB: a reference takes it where
+    its copy status differs and it is a copy, or where the status is
+    equal and its SAD is strictly lower. Returns the dict of
+    CLASSIFY_FIELDS (sad, target, motion_x, motion_y, sp_index int32; the
+    flags bool; target the offset 1..R, 0 where intra) and block_type
+    (uint8: INTRA_BIT, MOTION_BIT, COPY_BIT).
+
+    refs: for offsets 1..R (R <= 3; none leaves every MB intra), (wins,
+    mx, my, best_sad, best_mad, frozen) as subpel_scan takes them; the
+    other arguments as there. On the card: one K9 launch for every
+    reference, merge and all."""
+    if px.device.type == "cpu":
+        return subpel_classify_plain(refs, src_planes, px, py, x0, width,
+                                     height, mad_thr)
+    if len(refs) > MAX_REFS:
+        raise ValueError(f"subpel_classify: at most {MAX_REFS} references, "
+                         f"got {len(refs)}")
+    n, dev, thr = _check_subpel(src_planes, px, py, mad_thr)
+    for i, ref in enumerate(refs):
+        _check_reference(ref, n, f"refs[{i}].", dev.index)
+    buf = torch.empty(26 * n, dtype=torch.uint8, device=dev)
+    ints, flags, block_type = buf.split([20 * n, 5 * n, n])
+    sad, target, motion_x, motion_y, sp_index = ints.view(I32).view(5, n) \
+        .unbind(0)
+    is_copy, is_motion, is_intra, sp_pred, sp_amount = \
+        flags.view(torch.bool).view(5, n).unbind(0)
+    _launch_subpel(refs, True, src_planes, px, py, thr, x0, width, height,
+                   (sad, None, sp_index, sp_pred, sp_amount, is_motion,
+                    is_copy, is_intra, target, motion_x, motion_y,
+                    block_type))
+    return dict(sad=sad, is_copy=is_copy, is_motion=is_motion,
+                is_intra=is_intra, target=target, motion_x=motion_x,
+                motion_y=motion_y, sp_pred=sp_pred, sp_amount=sp_amount,
+                sp_index=sp_index, block_type=block_type)
+
+
+MAX_REFS = 3    # csrc/subpel.cu MAX_REFS: the ring's references
+SUBPEL_SIGNATURE = "piipppppp" + "i" * 8 + "pp"
+_WIN = ((MB + 2, MB + 2), (MB // 2 + 2, MB // 2 + 2),
+        (MB // 2 + 2, MB // 2 + 2))
+
+
+def _check_subpel(src_planes, px, py, mad_thr):
+    """Checks K9's per-frame arguments; returns (n, device, mad_thr as a
+    (1,) device tensor)."""
     h, w = src_planes[0].shape
     if h % MB or w % MB:
         raise ValueError("subpel_scan: plane dims must be multiples of 16")
     n = (h // MB) * (w // MB)
-    dev = mx.device
+    dev = px.device
     thr = torch.as_tensor(mad_thr, dtype=I32, device=dev).reshape(1)
-    for t, name, shape in ((wins[0], "ywin", (n, MB + 2, MB + 2)),
-                           (wins[1], "uwin", (n, MB // 2 + 2, MB // 2 + 2)),
-                           (wins[2], "vwin", (n, MB // 2 + 2, MB // 2 + 2)),
-                           (src_planes[0], "src_y", (h, w)),
-                           (src_planes[1], "src_u", (h // 2, w // 2)),
-                           (src_planes[2], "src_v", (h // 2, w // 2)),
-                           (mx, "mx", (n,)), (my, "my", (n,)),
-                           (best_sad, "best_sad", (n,)),
-                           (best_mad, "best_mad", (n,)),
-                           (px, "px", (n,)), (py, "py", (n,)),
-                           (thr, "mad_thr", (1,))):
-        _build.check(t, name, I32, shape)
-    _build.check(frozen, "frozen", torch.bool, (n,))
-    sad, mad, sp_index = torch.empty((3, n), dtype=I32, device=dev).unbind(0)
-    flags = torch.empty((4, n), dtype=torch.bool, device=dev)
-    sp_pred, sp_amount, is_motion, is_copy = flags.unbind(0)
-    fn = _build.kernel_fn("cairo_subpel_scan", "ppppppppppppppiiiiipppppppp")
-    _build.launch(fn, dev, *(t.data_ptr() for t in (
-        *wins, *src_planes, mx, my, best_sad, best_mad, frozen, px, py,
-        thr)), n, w, int(x0), int(width), int(height),
-                  *(t.data_ptr() for t in (sad, mad, sp_index, sp_pred,
-                                           sp_amount, is_motion, is_copy)))
+    _build.check_many([(src_planes[0], "src_y", (I32,), (h, w)),
+                       (src_planes[1], "src_u", (I32,), (h // 2, w // 2)),
+                       (src_planes[2], "src_v", (I32,), (h // 2, w // 2)),
+                       (px, "px", (I32,), (n,)), (py, "py", (I32,), (n,)),
+                       (thr, "mad_thr", (I32,), (1,))], dev.index)
+    return n, dev, thr
+
+
+def _check_reference(ref, n, prefix, index):
+    """Checks one reference's (wins, mx, my, best_sad, best_mad, frozen)."""
+    wins, mx, my, sad, mad, frozen = ref
+    _build.check_many(
+        [(t, prefix + name, (I32,), (n, *shape))
+         for t, name, shape in zip(wins, ("ywin", "uwin", "vwin"), _WIN)]
+        + [(t, prefix + name, (I32,), (n,))
+           for t, name in ((mx, "mx"), (my, "my"), (sad, "best_sad"),
+                           (mad, "best_mad"))]
+        + [(frozen, prefix + "frozen", (torch.bool,), (n,))], index)
+
+
+def _launch_subpel(refs, merge, src_planes, px, py, thr, x0, width, height,
+                   outs):
+    """One K9 launch over `refs` (checked) into `outs`, the 12 outputs of
+    csrc/subpel.cu's Outs (None where not asked)."""
+    ptrs = [t.data_ptr() for wins, *rest in refs for t in (*wins, *rest)]
+    ptrs += [None] * (8 * MAX_REFS - len(ptrs))
+    h, w = src_planes[0].shape
+    fn = _build.kernel_fn("cairo_subpel_scan", SUBPEL_SIGNATURE)
+    _build.launch(fn, px.device, (ctypes.c_void_p * len(ptrs))(*ptrs),
+                  len(refs), int(merge),
+                  *(t.data_ptr() for t in (*src_planes, px, py, thr)),
+                  (h // MB) * (w // MB), w, int(x0), int(width),
+                  int(height), INTRA_BIT, MOTION_BIT, COPY_BIT,
+                  (ctypes.c_void_p * 12)(*(None if t is None else
+                                           t.data_ptr() for t in outs)))
     LAUNCHES["subpel_scan"] += 1
-    return dict(sad=sad, mad=mad, is_motion=is_motion, is_copy=is_copy,
-                sp_pred=sp_pred, sp_amount=sp_amount, sp_index=sp_index)

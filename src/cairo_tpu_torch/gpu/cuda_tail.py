@@ -28,6 +28,9 @@ call engine's helpers, and neither reads the other at import.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from .. import tables
@@ -40,7 +43,7 @@ TOP = tables.MAX_QUANT_LEVELS - 1
 _FLAGS = (torch.bool, torch.uint8)
 _TABLES = ("B", "INTRA_QM", "INTER_QM", "LUMA_DC", "CHROMA_DC")
 # the ctypes signatures of csrc/tail.cu's C entries, the stream last
-ENCODE_SIGNATURE = "p" * 18 + "i" * 5 + "p" * 9
+ENCODE_SIGNATURE = "p" * 14 + "i" * 4 + "p" * 9
 DECODE_SIGNATURE = "p" * 17 + "i" * 3 + "p" * 10
 
 LAUNCHES = {"encode_tail": 0, "decode_tail": 0}
@@ -152,43 +155,122 @@ def _new_planes(h, w, dtype, dev):
 
 # ----------------------------------------------------------------- K10
 
+# The layout of K10's reciprocal table (csrc/tail.cu, k10::R_*), in int32
+# words: an int4 (m, s - 1, d, d // 2) per divisor d, its reciprocal (m,
+# s) as reciprocal(d) gives it.
+RECIP_LAYOUT = dict(QM=0, QP2=512, DCL=1536, DCC=2560, SF=3584, WORDS=3588)
+
+
+def reciprocal(d):
+    """The round-up reciprocal (m, s) of a divisor d >= 2: s =
+    ceil(log2 d) and m = ceil(2^(32 + s) / d) - 2^32, so that floor(n / d)
+    = floor(n (2^32 + m) / 2^(32 + s)) for every uint32 n (Granlund and
+    Montgomery): 2^(32 + s) <= (2^32 + m) d <= 2^(32 + s) + 2^s."""
+    d = int(d)
+    if d < 2:
+        raise ValueError(f"reciprocal: divisor {d} below 2")
+    s = (d - 1).bit_length()
+    return -(-(1 << (32 + s)) // d) - (1 << 32), s
+
+
+def reciprocals():
+    """K10's reciprocal table (RECIP_LAYOUT) as int32 words: every divisor
+    its quantizer meets. The intra and inter matrices, qp << 1 for qp
+    0..255 (qp 0 as 1: K10 never divides by 0, and the plain version
+    cannot either), the LUMA_DC and CHROMA_DC scales by qp and the scale
+    factor."""
+    words = np.zeros(RECIP_LAYOUT["WORDS"], np.int64)
+
+    def put(at, d):
+        m, sh = reciprocal(d)
+        words[at:at + 4] = m, sh - 1, int(d), int(d) // 2
+
+    lay = RECIP_LAYOUT
+    for k, qm in enumerate((tables.INTRA_QM_8x8, tables.INTER_QM_8x8)):
+        for i, d in enumerate(np.asarray(qm).reshape(-1)):
+            put(lay["QM"] + 4 * (64 * k + i), d)
+    qp = np.arange(256)
+    for at, ds in ((lay["QP2"], np.maximum(qp, 1) << 1),
+                   (lay["DCL"], tables.luma_dc_scale(qp)),
+                   (lay["DCC"], tables.chroma_dc_scale(qp))):
+        for i, d in enumerate(ds):
+            put(at + 4 * i, d)
+    put(lay["SF"], tables.QUANTIZER_SCALE_FACTOR)
+    return words.astype(np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _recip(index: int):
+    """reciprocals() on CUDA device `index`, made once."""
+    dev = f"cuda:{index}"
+    return ops.settled(dev, torch.as_tensor(reciprocals(), device=dev))
+
+
+def _aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes (K10's
+    vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def encode_tail(src, pred, is_intra, is_motion, is_copy, quality, adaptive,
                 coef):
     """The transform tail of one fast-mode frame (engine.encode_planes).
     Returns (coef, qp, variance, rec): the new coefficient planes, int16
     (a copy MB keeps the stale ones of `coef`); per-MB qp, int32, and the
     wrapped variance, int16; the reconstruction planes before the
-    deblock, int32 (a copy MB's is its prediction).
+    deblock, int32 (a copy MB's is its prediction). The outputs are views
+    into one buffer.
 
     src, pred: (Y (H, W), U, V (H/2, W/2)) int32 planes, the source and
     K4's prediction (zero where intra); is_intra, is_motion, is_copy:
     (N,) bool or uint8 per MB; quality: the frame's quality, an int32
     scalar tensor read on the device, or an int; adaptive: whether qp
-    adapts to each MB's variance (else it is the quality); coef: the
-    state's int16 coefficient planes. The inputs are left as they are."""
+    adapts to each MB's variance (else it is the quality: 1..255 then);
+    coef: the state's int16 coefficient planes. The inputs are left as
+    they are."""
     if src[0].device.type == "cpu":
         return encode_tail_plain(src, pred, is_intra, is_motion, is_copy,
                                  quality, adaptive, coef)
     h, w, n = _grid(src[0], "encode_tail")
     dev = src[0].device
-    _check_planes(src, "src", I32, h, w, dev)
-    _check_planes(pred, "pred", I32, h, w, dev)
-    _check_planes(coef, "coef", I16, h, w, dev)
-    flags = (is_intra, is_motion, is_copy)
-    for t, name in zip(flags, ("is_intra", "is_motion", "is_copy")):
-        _check_field(t, name, _FLAGS, n, dev)
-    q = torch.as_tensor(quality, dtype=I32, device=dev).reshape(1)
-    _build.check(q, "quality", I32, (1,))
-    out = _new_planes(h, w, I16, dev)
-    rec = _new_planes(h, w, I32, dev)
-    qp = torch.empty(n, dtype=I32, device=dev)
-    variance = torch.empty(n, dtype=I16, device=dev)
+    index = dev.index
+    ys, cs = (h, w), (h // 2, w // 2)
+    if not (isinstance(quality, torch.Tensor) and quality.dtype == I32
+            and quality.is_cuda):
+        quality = torch.as_tensor(quality, dtype=I32, device=dev)
+    _build.check_many([
+        *((t, f"src_{p}", (I32,), s) for t, p, s in zip(src, "yuv",
+                                                         (ys, cs, cs))),
+        *((t, f"pred_{p}", (I32,), s) for t, p, s in zip(pred, "yuv",
+                                                          (ys, cs, cs))),
+        *((t, f"coef_{p}", (I16,), s) for t, p, s in zip(coef, "yuv",
+                                                          (ys, cs, cs))),
+        (is_intra, "is_intra", _FLAGS, (n,)),
+        (is_motion, "is_motion", _FLAGS, (n,)),
+        (is_copy, "is_copy", _FLAGS, (n,)),
+        (quality, "quality", (I32,), quality.shape)], index)
+    if quality.numel() != 1:
+        raise ValueError(f"quality: expected one value, got shape "
+                         f"{tuple(quality.shape)}")
+    planes = [_aligned(t) for t in (*src, *pred, *coef)]
+    hw, chw = h * w, h * w // 4
+    buf = torch.empty(6 * hw + 3 * hw + 6 * n, dtype=torch.uint8,
+                      device=dev)
+    parts = buf.split([4 * hw, 4 * chw, 4 * chw, 2 * hw, 2 * chw, 2 * chw,
+                       4 * n, 2 * n])
+    rec = tuple(p.view(I32).view(s) for p, s in zip(parts[:3], (ys, cs, cs)))
+    out = tuple(p.view(I16).view(s) for p, s in zip(parts[3:6],
+                                                    (ys, cs, cs)))
+    qp, variance = parts[6].view(I32), parts[7].view(I16)
     fn = _build.kernel_fn("cairo_encode_tail", ENCODE_SIGNATURE)
-    _build.launch(fn, dev, *_ptrs(src), *_ptrs(pred), *_ptrs(flags),
-                  q.data_ptr(), *_ptrs(coef), *_table_ptrs(dev), h, w,
-                  int(bool(adaptive)), tables.QUANTIZER_SCALE_FACTOR, TOP,
-                  *_ptrs(out), qp.data_ptr(), variance.data_ptr(),
-                  *_ptrs(rec))
+    _build.launch(fn, dev, *(t.data_ptr() for t in planes[:6]),
+                  is_intra.data_ptr(), is_motion.data_ptr(),
+                  is_copy.data_ptr(), quality.data_ptr(),
+                  *(t.data_ptr() for t in planes[6:]),
+                  _recip(index).data_ptr(), h, w,
+                  int(bool(adaptive)), TOP, *(t.data_ptr() for t in out),
+                  qp.data_ptr(), variance.data_ptr(),
+                  *(t.data_ptr() for t in rec))
     LAUNCHES["encode_tail"] += 1
     return out, qp, variance, rec
 

@@ -2,9 +2,12 @@
 
 Fast mode (`inter_search`, motion.py:398-527), per reference frame: the
 chroma abs-max maps (K1) and the dense full-pel search over [-16, 16]^2
-(K2) pick each macroblock's offset; then the sub-pel windows (K3) around
-it feed the reference's 8-direction half / quarter refinement (K9),
-whose acceptance folds in the reference's order.
+(K2) pick each macroblock's offset (`full_pel`); then the sub-pel
+windows (K3) around it feed the reference's 8-direction half / quarter
+refinement (K9), whose acceptance folds in the reference's order. The
+fast encoder runs `full_pel` per reference and one K9 launch for all of
+them, the classification merge included
+(cuda_motion.subpel_classify).
 
 Conformance mode (`inter_search_exact`, motion.py:86-236): the
 reference's hill-climb replayed for every MB at once, the building block
@@ -50,6 +53,26 @@ def fold_full(state, vals, ok, mad_thr):
     return state
 
 
+def full_pel(src_planes, ref_planes, ring, slot, mad_thr, *, x0=0,
+             full_width=None, halo=0):
+    """The full-pel half of the fast search against one reference frame:
+    the chroma abs-max maps (K1), the dense search (K2) and the sub-pel
+    windows (K3) around its choice. Returns (wins, mx, my, best_sad,
+    best_mad, frozen), what the sub-pel scan (K9) takes of a reference.
+    mad_thr: (quality >> 2) + 1, an int32 scalar tensor; the other
+    arguments as inter_search takes them."""
+    height = src_planes[0].shape[0]
+    width = full_width if full_width is not None else src_planes[0].shape[1]
+    cmax = cuda_motion.chroma_max_maps(src_planes[1], src_planes[2],
+                                       ref_planes[1], ref_planes[2],
+                                       halo // 2)
+    mx, my, best_sad, best_mad, frozen = cuda_motion.dense_select(
+        src_planes[0], ref_planes[0], cmax, x0, width, height, mad_thr,
+        halo)
+    wins = cuda_pred.gather_windows_yuv(ring, slot, mx, my, halo)
+    return wins, mx, my, best_sad, best_mad, frozen
+
+
 def inter_search(src, src_planes, ref_planes, ring, slot, px, py, quality,
                  *, x0=0, full_width=None, halo=0):
     """Dense fast-mode search of every MB against one reference frame.
@@ -66,23 +89,17 @@ def inter_search(src, src_planes, ref_planes, ring, slot, px, py, quality,
     origin and `full_width` the aligned frame width, so candidate
     validity is judged against the whole frame while addressing stays
     tile-local, and the margin holds the neighbouring tiles' pixels
-    (tpu/motion.py:398-445)."""
-    height = src_planes[0].shape[0]
+    (tpu/motion.py:398-445). The fast encoder's classification runs
+    full_pel per reference and one sub-pel scan for all of them
+    (engine._classify_inter)."""
     width = full_width if full_width is not None else src_planes[0].shape[1]
     mad_thr = (quality >> 2) + 1
-
-    cmax = cuda_motion.chroma_max_maps(src_planes[1], src_planes[2],
-                                       ref_planes[1], ref_planes[2],
-                                       halo // 2)
-    mx, my, best_sad, best_mad, frozen = cuda_motion.dense_select(
-        src_planes[0], ref_planes[0], cmax, x0, width, height, mad_thr,
-        halo)
-
-    # ---- sub-pel refinement (K9) in windows centred on the best mv (K3)
-    wins = cuda_pred.gather_windows_yuv(ring, slot, mx, my, halo)
+    wins, mx, my, best_sad, best_mad, frozen = full_pel(
+        src_planes, ref_planes, ring, slot, mad_thr, x0=x0,
+        full_width=full_width, halo=halo)
     out = cuda_motion.subpel_scan(wins, src_planes, mx, my, best_sad,
                                   best_mad, frozen, px, py, x0, width,
-                                  height, mad_thr)
+                                  src_planes[0].shape[0], mad_thr)
     return dict(sad=out.pop("sad"), mad=out.pop("mad"), motion_x=mx,
                 motion_y=my, **out)
 

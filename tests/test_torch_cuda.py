@@ -17,8 +17,8 @@ import torch
 
 from cairo_tpu_torch.gpu import (_build, api, cuda_deblock, cuda_inter,
                                  cuda_motion, cuda_pred, cuda_tail, cuda_wave,
-                                 cuda_wavedec, deblock, engine, ops, shard,
-                                 tiled, wavefront, wire)
+                                 cuda_wavedec, deblock, engine, motion, ops,
+                                 shard, tiled, wavefront, wire)
 from cairo_tpu_torch.synth import synth_frames
 from util_deblock import KINDS, SIZES, TILE_SIZES, deblock_case
 
@@ -1432,3 +1432,229 @@ def test_tail_wrappers_check_their_arguments(dev):
         with pytest.raises(ValueError):
             cuda_tail.decode_tail(*call[:5], stale=call[5])
     assert cuda_tail.LAUNCHES == launches
+
+
+# ---- K9 with every reference and the classification merge
+# (cuda_motion.subpel_classify)
+
+CLASSIFY_KEYS = cuda_motion.CLASSIFY_FIELDS + ("block_type",)
+
+
+def _classify_args(dev, rng, h, w, n_refs, *, kind="search", lo=-300,
+                   hi=560, x0=0, full_width=None, halo=0, thr=5, mad0=None):
+    """subpel_classify's arguments for references at offsets 1..n_refs - 1
+    of frame 3 (ring slots 2, 1, 0): a smooth ring in [lo, hi] whose
+    slots the source shows at other full- and quarter-pel shifts (so that
+    the references' results differ and each merge rule decides
+    something), with `halo` columns of margin; each reference's K1-K3 run
+    on its slot (kind "search"), or random vectors, metrics and a fifth
+    of the MBs frozen around which K3 gathers ("random"). mad0: every
+    MB's best MAD for "random"."""
+    n = (h // 16) * (w // 16)
+    wide = w + 2 * halo
+    shapes = ((h, wide), (h // 2, wide // 2), (h // 2, wide // 2))
+    ring = [_smooth_planes(rng, (RING,) + s, lo, hi) for s in shapes]
+    src = []
+    for i, r in enumerate(ring):
+        m = halo if i == 0 else halo // 2
+        core = r[2][:, m:r.shape[2] - m]
+        dx, dy = (3, -2) if i == 0 else (1, -1)
+        a = np.roll(core, (-dy, -dx), (0, 1))
+        b = np.roll(core, (-dy - 1, -dx - 1), (0, 1))
+        src.append(np.clip((3 * a + b + 2) // 4
+                           + rng.integers(-2, 3, a.shape), 0, 255))
+    ring = [_t(r, torch.int16).to(dev) for r in ring]
+    src = tuple(_t(p.astype(np.int32)).to(dev) for p in src)
+    width = full_width if full_width is not None else w
+    mad_thr = torch.tensor(thr, dtype=torch.int32, device=dev)
+    refs = []
+    for offset in range(1, n_refs):
+        slot = torch.tensor([(3 + RING - offset) % RING], dtype=torch.int32,
+                            device=dev)
+        if kind == "search":
+            refs.append(motion.full_pel(
+                src, tuple(r[slot[0]] for r in ring), tuple(ring), slot,
+                mad_thr, x0=x0, full_width=full_width, halo=halo))
+            continue
+
+        def i32(lo_, hi_):
+            return _t(rng.integers(lo_, hi_, n).astype(np.int32)).to(dev)
+        mx, my = i32(-16, 17), i32(-16, 17)
+        sad = i32(0, 20000)
+        mad = i32(0, 12) if mad0 is None else torch.full_like(sad, mad0)
+        frozen = _t(rng.random(n) < 0.2).to(dev)
+        wins = cuda_pred.gather_windows_yuv(tuple(ring), slot, mx, my, halo)
+        refs.append((wins, mx, my, sad, mad, frozen))
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    px, py = (idx % (w // 16)) * 16, (idx // (w // 16)) * 16
+    return refs, src, px, py, x0, width, h, mad_thr
+
+
+def _check_classify(args):
+    """The merged K9 against its plain version on the same card tensors,
+    exact; the inputs unchanged and one launch counted. Returns the
+    kernel's dict."""
+    tensors = [t for ref in args[0] for a in ref
+               for t in (a if isinstance(a, tuple) else (a,))]
+    tensors += [t for a in args[1:] for t in (a if isinstance(a, tuple)
+                                             else (a,))
+                if torch.is_tensor(t)]
+    before = [t.clone() for t in tensors]
+    launches = cuda_motion.LAUNCHES["subpel_scan"]
+    got = cuda_motion.subpel_classify(*args)
+    assert cuda_motion.LAUNCHES["subpel_scan"] == launches + 1
+    want = cuda_motion.subpel_classify_plain(*args)
+    assert tuple(got) == CLASSIFY_KEYS and tuple(want) == CLASSIFY_KEYS
+    for k in CLASSIFY_KEYS:
+        assert got[k].dtype == want[k].dtype and got[k].is_cuda, k
+        _eq(got[k], want[k])
+    for t, b in zip(tensors, before):
+        _eq(t, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1088, 1920), (16, 16), (16, 112),
+                                  (112, 16), (48, 80)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("n_refs", [2, 3, 4])
+@pytest.mark.parametrize("kind", ["search", "random"])
+def test_subpel_classify_matches_plain(dev, size, n_refs, kind):
+    """Every reference count the fast encoder takes, at the 1080p grid and
+    at grids that are not whole blocks of the kernel's 4 MBs; on the
+    1080p search more than one reference wins somewhere and some MBs take
+    a sub-pel candidate."""
+    args = _classify_args(dev, np.random.default_rng(size[1] + n_refs),
+                          *size, n_refs, kind=kind)
+    got = _check_classify(args)
+    if size == (1088, 1920) and kind == "search" and n_refs > 2:
+        assert len(np.unique(got["target"].cpu().numpy())) >= 2
+        assert got["sp_pred"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x0,full_width,halo", [(0, 640, 32), (32, 160, 32),
+                                                (480, 1920, 64)])
+def test_subpel_classify_at_tile_origins(dev, x0, full_width, halo):
+    for kind in ("search", "random"):
+        _check_classify(_classify_args(
+            dev, np.random.default_rng(x0 + halo), 96, 160, 4, kind=kind,
+            x0=x0, full_width=full_width, halo=halo))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr,mad0", [(5, None), (1 << 20, 1 << 30)])
+def test_subpel_classify_int16_windows(dev, thr, mad0):
+    """Windows over the whole int16 range, and a MAD threshold under which
+    every searched reference is a copy, so that the merge picks by SAD
+    alone."""
+    for kind in ("search", "random"):
+        got = _check_classify(_classify_args(
+            dev, np.random.default_rng(thr), 96, 160, 4, kind=kind,
+            lo=-32768, hi=32767, thr=thr, mad0=mad0))
+        if thr > 5 and kind == "search":
+            assert got["is_copy"].all()
+
+
+@pytest.mark.cuda
+def test_subpel_classify_no_reference_is_intra(dev):
+    args = _classify_args(dev, np.random.default_rng(1), 48, 80, 1)
+    got = _check_classify(args)
+    assert got["is_intra"].all() and not got["target"].any()
+
+
+@pytest.mark.cuda
+def test_subpel_classify_checks_its_arguments(dev):
+    args = list(_classify_args(dev, np.random.default_rng(4), 48, 80, 4))
+    refs = args[0]
+    wins, mx, my, sad, mad, frozen = refs[1]
+    bad = [
+        (0, refs + refs[:1]),
+        (0, [refs[0], ((wins[0].to(torch.int16),) + wins[1:], mx, my, sad,
+                       mad, frozen)]),
+        (0, [refs[0], (wins, mx[:-1], my, sad, mad, frozen)]),
+        (0, [refs[0], (wins, mx, my, sad.to(torch.int64), mad, frozen)]),
+        (0, [refs[0], (wins, mx, my, sad, mad, frozen.to(torch.int32))]),
+        (0, [(wins, mx, my, sad, mad, frozen.cpu())]),
+        (1, (args[1][0][:, :64],) + args[1][1:]),
+        (2, args[2][:-1]),
+    ]
+    launches = cuda_motion.LAUNCHES["subpel_scan"]
+    for i, value in bad:
+        call = list(args)
+        call[i] = value
+        with pytest.raises(ValueError):
+            cuda_motion.subpel_classify(*call)
+    assert cuda_motion.LAUNCHES["subpel_scan"] == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [1, 2])
+def test_k9_launches_once_per_inter_frame(dev, n_tiles):
+    """The fast encoder launches K9 once per inter frame (per tile on the
+    tiled path), for all its references, and its chunks equal the CPU's."""
+    frames = synth_frames(128, 64, 3)
+    if n_tiles == 1:
+        card, cpu = api.GpuEncoder(), api.GpuEncoder(device="cpu")
+    else:
+        card = tiled.TiledEncoder(n_tiles=2, devices=["cuda:0"] * 2)
+        cpu = tiled.TiledEncoder(n_tiles=2, devices=["cpu"] * 2)
+    for i, f in enumerate(frames):
+        before = cuda_motion.LAUNCHES["subpel_scan"]
+        chunk = card.encode(f)
+        torch.cuda.synchronize()
+        assert cuda_motion.LAUNCHES["subpel_scan"] - before == \
+            (n_tiles if i else 0)
+        assert chunk == cpu.encode(f)
+
+
+# ---- K10 redesigned: the quantizer's divisions at their edges
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", list(range(32)))
+def test_encode_tail_every_quality(dev, quality):
+    """Every quality, adaptive (qp 1..31 from the variance) and, from 1,
+    not (qp the quality), on residuals at the int16 edges and on mixed
+    ones, over MBs of every kind (intra, intra motion, inter, motion,
+    copy)."""
+    rng = np.random.default_rng(100 + quality)
+    for kind in ("mixed", "extreme"):
+        for adaptive in (True, False) if quality else (True,):
+            _check_tail("encode_tail", _encode_tail_args(
+                dev, rng, 48, 80, kind, quality, adaptive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", [1, 128, 255])
+def test_encode_tail_qp_extremes(dev, quality):
+    """qp at the ends of the reciprocal tables (adaptive QP off), where
+    the dequantizer's products are largest."""
+    rng = np.random.default_rng(quality)
+    for kind in ("extreme", "wrap"):
+        got = _check_tail("encode_tail", _encode_tail_args(
+            dev, rng, 96, 160, kind, quality, False))
+        assert (got[1] == quality).all()
+
+
+@pytest.mark.cuda
+def test_encode_tail_unaligned_planes(dev):
+    """Planes that do not start on 16 bytes (views at an odd offset) give
+    the aligned planes' outputs."""
+    rng = np.random.default_rng(12)
+    args = list(_encode_tail_args(dev, rng, 48, 80))
+
+    def shifted(planes):
+        out = []
+        for p in planes:
+            buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=dev)
+            v = buf[1:].view(p.shape)
+            v.copy_(p)
+            assert v.data_ptr() % 16
+            out.append(v)
+        return tuple(out)
+
+    want = cuda_tail.encode_tail(*args)
+    for i in (0, 1, 7):
+        call = list(args)
+        call[i] = shifted(args[i])
+        _same_outputs(cuda_tail.encode_tail(*call), want)
