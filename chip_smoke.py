@@ -44,9 +44,9 @@ Phases, one line each with the elapsed seconds:
      inputs (residuals at 32767, -32767 and 32768 at q 1, full-scale
      residuals whose variance sums wrap int32 at q 31, adaptive QP off,
      every MB a copy; K11 without the carry, with the residual blocks K7
-     reads and on int16-range coefficients), each twice with identical
-     outputs and its inputs unchanged, with their times, bounds and
-     ptxas usage;
+     reads, on int16-range coefficients and with every MB a copy and the
+     carry, also timed), each twice with identical outputs and its inputs
+     unchanged, with their times, bounds and ptxas usage;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
@@ -791,36 +791,44 @@ def phase_kernels_classify(torch, np, gpu, H=1088, W=1920):
 # K10 the residual 2, the forward DCT's two passes 30 (outputs k and
 # 7 - k paired), the variance 3 (its 5 on the 256 luma samples of 384),
 # quantization 20, the carry 1, dequantization 8, the inverse DCT's two
-# passes 30 and the prediction add 3; K11 the carry 1, dequantization 5,
-# the inverse DCT 54 and the prediction add 3
+# passes 30 and the prediction add 3; K11 the carry 1, dequantization 8
+# (2 v, * qm, * qp, C's / by the constant 16 as three shifts and an add,
+# wrap16, the DC select), the inverse DCT's two passes 30 (as K10's) and
+# the prediction add 3
 ENCODE_TAIL_OPS_PER_SAMPLE = 97
-DECODE_TAIL_OPS_PER_SAMPLE = 63
+DECODE_TAIL_OPS_PER_SAMPLE = 42
 
 
 def tail_work(name, args, kw):
     """(bytes, operations) K10 or K11 must spend on one call with `args`
     and `kw`: each input read once (the stale coefficients only for copy
     MBs, the only ones that read them), each output written once; the
-    operations of every sample of every MB."""
-    if name == "encode_tail":
-        planes, is_copy, stale = args[0], args[4], True
-        # source and prediction in; coefficients and recon out
-        per_sample = 4 + 4 + 2 + 4
-        per_mb = 3 + 4 + 2         # flags in; qp and variance out
-        ops = ENCODE_TAIL_OPS_PER_SAMPLE
-    else:
-        planes, is_copy = args[0], args[3]
-        stale = kw.get("stale") is not None
-        # coefficients and prediction in; recon, and where asked the
-        # carried coefficients and the residual blocks, out
-        per_sample = 4 + 4 + 4 + (2 if stale else 0) \
-            + (4 if kw.get("residual") else 0)
-        per_mb = 4 + 2             # qp and flags in
-        ops = DECODE_TAIL_OPS_PER_SAMPLE
+    operations of every sample of every MB (K11: of every MB whose
+    residual is needed; a copy MB whose residual nobody reads only carries
+    and takes its prediction, one operation a sample)."""
+    planes = args[0]
     samples = sum(p.numel() for p in planes)
-    copied = int(samples * float(is_copy.float().mean())) if stale else 0
-    return (samples * per_sample + is_copy.numel() * per_mb + copied * 2,
-            samples * ops)
+    if name == "encode_tail":
+        is_copy = args[4]
+        copied = int(samples * float(is_copy.float().mean()))
+        # source and prediction in; coefficients and recon out; the stale
+        # coefficients of copy MBs in; flags in, qp and variance out
+        return (samples * (4 + 4 + 2 + 4) + copied * 2
+                + is_copy.numel() * (3 + 4 + 2),
+                samples * ENCODE_TAIL_OPS_PER_SAMPLE)
+    is_copy = args[3]
+    stale, residual = kw.get("stale") is not None, bool(kw.get("residual"))
+    copied = int(samples * float(is_copy.float().mean()))
+    # prediction in and recon out; the coefficients of the MBs that are no
+    # copy in; a copy MB's int16 stale row where the carry asks, else its
+    # coefficients where the residual blocks ask; where asked, the carried
+    # coefficients and the residual blocks out; qp and flags in
+    coef_in = (samples - copied) * 4 + copied * (2 if stale else
+                                                 4 if residual else 0)
+    rebuilt = samples if residual else samples - copied
+    return (samples * (4 + 4 + (2 if stale else 0) + (4 if residual else 0))
+            + coef_in + is_copy.numel() * (4 + 2),
+            rebuilt * DECODE_TAIL_OPS_PER_SAMPLE + (samples - rebuilt))
 
 
 def kept_calls(mod, name, run):
@@ -855,10 +863,11 @@ def phase_kernels_tail(torch, np, gpu):
     inputs: residuals at 32767, -32767 and 32768 at q 1; full-scale
     residuals whose transformed MBs' variance sums wrap int32, at q 31;
     adaptive QP off; every MB a copy; K11 without the carry, with the
-    residual blocks K7 reads, and on coefficients over the whole int16
-    range. Each case runs twice with identical outputs and its inputs left
-    as they were. Returns the records of K10 and K11 (timed on the main
-    path's inter frame)."""
+    residual blocks K7 reads, on coefficients over the whole int16 range
+    and with every MB a copy and the carry. Each case runs twice with
+    identical outputs and its inputs left as they were. Returns the
+    records of K10 and K11 (timed on the main path's inter frame; K11 also
+    on its every-MB-a-copy case, keys all_copy_*)."""
     from cairo_tpu_torch.synth import synth_frames
 
     ct, api = gpu["cuda_tail"], gpu["api"]
@@ -925,7 +934,10 @@ def phase_kernels_tail(torch, np, gpu):
         ("int16-range coefficients", ((wide, t(rng.integers(0, 32, qp.numel()),
                                                 torch.int32),
                                        intra_default, dcopy, dpred),
-                                      {**kw, "residual": True}))]
+                                      {**kw, "residual": True})),
+        ("every MB a copy, with the carry",
+         ((args[0], qp, intra_default, torch.ones_like(dcopy), dpred),
+          kw))]
     recs = {}
     for key, name, cases, kernel in (
             ("K10", "encode_tail", enc_cases, "encode_tail_kernel"),
@@ -963,6 +975,16 @@ def phase_kernels_tail(torch, np, gpu):
             bytes=nbytes, ops=ops, max_abs_err=err,
             copy_share=float(a[4 if name == "encode_tail" else 3]
                              .float().mean()))
+    # K11 where every MB is a copy (with the carry), beside the main path
+    a, k = dec_cases[-1][1]
+    nbytes, ops = tail_work("decode_tail", a, k)
+    kern, plain = ct.decode_tail, ct.decode_tail_plain
+    recs["K11"].update(
+        all_copy_ms=cuda_ms(torch, lambda: kern(*a, **k), 10),
+        all_copy_device_ms=device_ms(torch, lambda: kern(*a, **k),
+                                     "decode_tail_kernel"),
+        all_copy_plain_ms=cuda_ms(torch, lambda: plain(*a, **k), 3),
+        all_copy_bytes=nbytes, all_copy_ops=ops)
     return recs
 
 
@@ -2524,6 +2546,13 @@ def main():
             f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) / "
             f"{r['ops'] / INT_OPS_PER_S * 1e3:.4f} ms (operations); "
             f"{usage[kname]} on {smi}")
+    r = recs["K11"]
+    log(f"phase 2: K11 at 1920x1088, every MB a copy, with the carry "
+        f"({r['all_copy_bytes'] / 1e6:.1f} MB): {r['all_copy_ms']:.4f} ms, "
+        f"kernel alone {r['all_copy_device_ms']:.4f} ms (plain "
+        f"{r['all_copy_plain_ms']:.3f} ms), bound "
+        f"{r['all_copy_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) on "
+        f"{smi}")
     k8 = recs["K8"]
     if "deblock_kernel" not in usage:
         fail("ptxas reported nothing for deblock_kernel")
@@ -2701,7 +2730,7 @@ def main():
         # K7's intra frame beside its inter frame
         kernels[-1].update({k: v for k, v in r.items()
                             if k.startswith(("luma_", "chroma_", "intra_",
-                                             "single_"))})
+                                             "single_", "all_copy_"))})
         if k == "K9":
             kernels[-1]["taken_by_case"] = r["taken"]
             kernels[-1]["targets_by_case"] = r["targets"]

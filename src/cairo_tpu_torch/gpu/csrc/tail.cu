@@ -30,10 +30,11 @@
 // prediction planes (the stale int16 coefficients of copy MBs only) and
 // writes int16 coefficient and int32 recon planes: some 44 MB at 1080p
 // (0.013 ms at 3.35 TB/s), against some 97 integer operations a sample
-// (0.30 G, 0.009 ms at 33.5 Tops/s). K11 reads int32 coefficients and
-// prediction and writes int32 recon (and, asked, the int16 carried
-// coefficients and the int32 residual blocks): 44 MB on the COO decode,
-// against 63 operations a sample (0.2 G).
+// (0.30 G, 0.009 ms at 33.5 Tops/s). K11 reads int32 coefficients (a copy
+// MB's int16 stale row in their place, or nothing where neither carry nor
+// residual asks for it) and prediction and writes int32 recon (and, asked,
+// the int16 carried coefficients and the int32 residual blocks): 44 MB on
+// the COO decode, against 42 operations a sample (0.13 G).
 //
 // K10's design: 48 threads an MB, each one 8-sample row of one of the
 // MB's six 8x8 blocks, MBS MBs a block. An MB's 32 luma rows (4
@@ -60,12 +61,47 @@
 // inverse truncates each term before it; the passes pair output k with
 // 7 - k by the basis' symmetry, which changes neither a term nor a sum.
 //
-// K11's design, simple first: one block of 384 threads per MB, one thread
-// per sample of its six 8x8 blocks (the four luma quadrants TL, TR, BL,
-// BR, then U and V). Each 1-D pass is a sum of 8 products over a row or a
-// column that the block stages in shared memory. Planes in, planes out: a
-// thread reads and writes its own sample of each plane (eight threads a
-// 32-byte row segment), so no block layout is copied around a launch.
+// K11's design is K10's without the forward half: the same 48 threads an
+// MB in blocks of k11::MBS MBs, the same warps, an 8x8 block in 8 lanes
+// of one warp, the same paired idct8 with the basis as immediates and the
+// same padded transpose. A thread loads column r of its block's
+// coefficients (for each of the 8 rows the block's 8 lanes read one
+// 32-byte sector; a copy MB's int16 stale column where the carry asks)
+// and stores it to the carried plane, dequantizes it, runs the column
+// pass, transposes and runs the row pass; its residual row is stored in
+// K7's block layout with two 16-byte stores where asked, added to the
+// prediction row it loaded with 16-byte loads, and stored with 16-byte
+// stores. A copy MB whose residual nobody asks for takes its prediction
+// and copies its stale row to the carried plane (one 16-byte load and
+// store), with no coefficient read, dequantization or pass. qp and the
+// flags are read per MB, so no value crosses warps: the 8 lanes of a
+// block synchronise among themselves (__syncwarp on their mask), lanes
+// past the last MB leave as whole blocks, and the kernel has no
+// block-wide barrier. Dequantization has no runtime division: the matrix
+// entries and DC scales are the reciprocal table's d words, and the scale
+// factor is the compile-time k11::SF (cuda_tail checks it against
+// tables.QUANTIZER_SCALE_FACTOR once a process).
+//
+// The times behind it (tools/kernel_split.py k11 on the main path's 1080p
+// inter frame, device ms, NVIDIA H100 80GB HBM3, 700.00 W): 0.0186-0.0187
+// as built. The design not taken, rows loaded with 16-byte loads (the
+// carried row one 16-byte store) and turned into columns by a second
+// transpose, took 0.0198-0.0199. 4 MBs a block took 0.0179-0.0185, within
+// the spread between turns, and 8 MBs 0.0190, so K10's 2 stay. 4-byte
+// access to the prediction, the reconstruction and the residual took
+// 0.0363. Without dequantization 0.0163-0.0164; with loads and stores only
+// 0.0177, against 0.0131 for the bytes.
+//
+// K11's domain, on which C's truncating / equals ops.trunc_div_pos and no
+// product wraps: coefficients int16-valued (-32768..32767) in int32, qp
+// 0..255. Every producer gives that: engine.coo_planes scatters int16 COO
+// values, each position written once by the parser (positions past the
+// planes add 0); the dense decodes (engine.decode_step,
+// wavefront.conformance_decode_step_dense, shard.tile_decode_step) widen
+// int16 planes; the wave decode's new_coef is coo_planes' or the dense
+// one's; the stale planes are int16; qp is the block table's uint8
+// q_index. There |2 v qm qp| <= 2 * 32768 * 45 * 255 < 2^31 and the intra
+// DC product |v dc| <= 32768 * 494 (tests/test_torch_decode_tail.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,115 +115,18 @@ using cairo::clampi;
 using cairo::FULL;
 using cairo::MB;
 using cairo::mul_w;
-using cairo::rounded_div_pos;
 using cairo::sub_w;
 using cairo::trunc_div_pos;
 using cairo::wrap16;
 
-constexpr int THREADS = 384;   // K11: 6 blocks of 64 samples, one MB
+// ---- shared by K10 and K11
 
-// ops.consts' tables (device pointers) and the quantizer's scale factor
-struct Tables {
-  const int* basis;      // DCT_BASIS_8, B[k][j] at 8 k + j
-  const int* intra_qm;
-  const int* inter_qm;
-  const int* luma_dc;    // indexed by qp, 256 entries
-  const int* chroma_dc;
-  int sf;                // QUANTIZER_SCALE_FACTOR
-};
-
-// Thread t's sample of MB `mb` in a frame w luma samples wide: block
-// b = t / 64, row r and column c inside it; `at` its index in its plane.
-struct Sample {
-  int b, r, c, at;
-
-  __device__ Sample(int t, int mb, int w) {
-    b = t >> 6;
-    r = (t >> 3) & 7;
-    c = t & 7;
-    const int wb = w / MB, mx = mb % wb, my = mb / wb;
-    at = b < 4 ? (my * MB + 8 * (b >> 1) + r) * w + mx * MB + 8 * (b & 1) + c
-               : (my * 8 + r) * (w / 2) + mx * 8 + c;
-  }
-
-  template <typename T>
-  __device__ T* of(T* y, T* u, T* v) const {
-    return b < 4 ? y : (b == 4 ? u : v);
-  }
-
-  // index in the residual blocks: (N, 16, 16) luma, (N, 8, 8) chroma
-  __device__ int block_at(int mb) const {
-    return b < 4 ? mb * 256 + (8 * (b >> 1) + r) * 16 + 8 * (b & 1) + c
-                 : mb * 64 + r * 8 + c;
-  }
-
-  __device__ bool dc() const { return r == 0 && c == 0; }
-};
-
-// ---- the 1-D passes, over the block of 64 samples staged at buf[base]
-
-// ops.idct8's pass1d term j: v * B[j][k], the DC term (j 0) scaled
-// * 45 / 128, the others / 2, each truncated before the sum
-__device__ __forceinline__ int idct_term(int v, int bjk, int j) {
-  const int p = mul_w(v, bjk);
-  return j == 0 ? trunc_div_pos(mul_w(p, 45), 128) : trunc_div_pos(p, 2);
-}
-
-// ops.idct8 of the block holding this thread's dequantized coefficient
-// d: columns, then rows; returns the thread's residual sample.
-__device__ int inverse(int d, const Sample& s, int* buf, const int* B) {
-  const int t = threadIdx.x, base = t & ~63;
-  __syncthreads();   // the previous pass's reads of buf are done
-  buf[t] = d;
-  __syncthreads();
-  int acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    acc = add_w(acc, idct_term(buf[base + j * 8 + s.c], B[j * 8 + s.r], j));
-  buf[THREADS + t] = wrap16(rounded_div_pos(acc, 128));
-  __syncthreads();
-  acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    acc = add_w(acc, idct_term(buf[THREADS + base + s.r * 8 + j],
-                               B[j * 8 + s.c], j));
-  return wrap16(rounded_div_pos(acc, 128));
-}
-
-// ---- quantization (ops.quantize_8x8 / dequantize_8x8 at one sample)
-
-__device__ __forceinline__ int dc_scale(const Sample& s, const Tables& tb,
-                                        int qp) {
-  return (s.b < 4 ? tb.luma_dc : tb.chroma_dc)[qp & 255];
-}
-
-__device__ int dequantize(int v, const Sample& s, bool intra, int qp,
-                          const Tables& tb) {
-  const int i = s.r * 8 + s.c;
-  if (intra && s.dc()) return wrap16(mul_w(v, dc_scale(s, tb, qp)));
-  const int qm = (intra ? tb.intra_qm : tb.inter_qm)[i];
-  return wrap16(trunc_div_pos(mul_w(mul_w(mul_w(2, v), qm), qp), tb.sf));
-}
-
-// stages the basis in shared memory
-__device__ __forceinline__ void load_basis(int* B, const Tables& tb) {
-  if (threadIdx.x < 64) B[threadIdx.x] = tb.basis[threadIdx.x];
-}
-
-// ---- K10: 48 threads an MB, one 8-sample row of one of its 8x8 blocks
-// each, MBS MBs a block (the header says why)
-
-namespace k10 {
-
-constexpr int MBS = 2;              // MBs a block, even
-constexpr int BLOCK = 48 * MBS;     // MBS luma warps, then MBS / 2 chroma
-static_assert(MBS % 2 == 0, "a chroma warp holds the rows of two MBs");
 constexpr int LD = 9;               // transpose row pitch, ints
 constexpr int TB = 8 * LD;          // one 8x8 block's transpose area
 
 // The reciprocal table (cuda_tail.reciprocals), int32 words, an int4 (m,
 // s - 1, d, d / 2) per divisor d: m = ceil(2^(32 + s) / d) - 2^32 and s =
-// ceil(log2 d).
+// ceil(log2 d). K11 reads the d words only.
 constexpr int R_QM = 0;       // [2][64] INTRA_QM_8x8, INTER_QM_8x8
 constexpr int R_QP2 = 512;    // [256] qp << 1 by qp (qp 0 as qp 1)
 constexpr int R_DCL = 1536;   // [256] LUMA_DC by qp
@@ -212,53 +151,10 @@ __device__ __forceinline__ int B8(int i) {
   return b[i];
 }
 
-// floor(n / d) for every uint32 n and d >= 2, from d's reciprocal r:
-// floor(n (2^32 + m) / 2^(32 + s)), the sum n + t halved as t + (n - t) / 2
-// so that it stays in 32 bits (t = floor(n m / 2^32) <= n)
-__device__ __forceinline__ unsigned udiv(unsigned n, int4 r) {
-  const unsigned t = __umulhi(n, static_cast<unsigned>(r.x));
-  return (t + ((n - t) >> 1)) >> r.y;
-}
-
-// ops.trunc_div_pos(n, d) for |n| < 2^31
-__device__ __forceinline__ int tdiv(int n, int4 r) {
-  const int q = static_cast<int>(udiv(static_cast<unsigned>(abs(n)), r));
-  return n < 0 ? -q : q;
-}
-
-// ops.rounded_div_pos(n, d) for |n| + d / 2 < 2^31: n - d / 2 (n < 0) or
-// n + d / 2 (n >= 0) truncated, that is sign(n) floor((|n| + d / 2) / d)
-__device__ __forceinline__ int rdiv(int n, int4 r) {
-  const int q =
-      static_cast<int>(udiv(static_cast<unsigned>(abs(n) + r.w), r));
-  return n < 0 ? -q : q;
-}
-
 // ops.rounded_div_pos(v, 128) for |v| < 2^30: C's / truncates as
 // trunc_div_pos does wherever abs() does not wrap
 __device__ __forceinline__ int rdiv128(int v) {
   return (v < 0 ? v - 64 : v + 64) / 128;
-}
-
-// ops.fdct8's pass1d over 8 samples, in place: output k is
-// fdct_out(sum_j x_j B[k][j]), the sum scaled * 45 / 128 (k 0) or / 2 and
-// truncated, then rounded / 128. B[k][7 - j] = (-1)^k B[k][j], so even k
-// sum (x_j + x_7-j) B[k][j] and odd k (x_j - x_7-j) B[k][j] over j < 4:
-// the same integer sums (|x| <= 2^15, |B| <= 128: no sum leaves 2^26).
-__device__ __forceinline__ void fdct8(int (&x)[8]) {
-  int e[4], o[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    e[j] = x[j] + x[7 - j];
-    o[j] = x[j] - x[7 - j];
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    int acc = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc += ((k & 1) ? o[j] : e[j]) * B8(8 * k + j);
-    x[k] = wrap16(rdiv128(k == 0 ? acc * 45 / 128 : acc / 2));
-  }
 }
 
 // ops.idct8's pass1d over 8 coefficients, in place: output k is the sum
@@ -291,14 +187,90 @@ __device__ __forceinline__ void idct8(int (&v)[8]) {
 // The 8 x 8 block of the eight lanes r = 0..7 that share buf: each lane's
 // 8 values in, its column r out. Lane (b, r) of a warp's four blocks
 // stores word 72 b + 9 r + k and loads 72 b + 9 j + r, 32 banks either
-// way.
-__device__ __forceinline__ void transpose(int (&v)[8], int* buf, int r) {
-  __syncwarp();   // the last transpose's loads are done
+// way. mask: the lanes that synchronise, at least the block's eight.
+__device__ __forceinline__ void transpose(int (&v)[8], int* buf, int r,
+                                          unsigned mask = FULL) {
+  __syncwarp(mask);   // the last transpose's loads are done
 #pragma unroll
   for (int k = 0; k < 8; ++k) buf[r * LD + k] = v[k];
-  __syncwarp();
+  __syncwarp(mask);
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = buf[j * LD + r];
+}
+
+// two int16 values in one word, the first in the low half
+__device__ __forceinline__ int pack16(int lo, int hi) {
+  return static_cast<int>((static_cast<unsigned>(lo) & 0xFFFFu) |
+                          (static_cast<unsigned>(hi) << 16));
+}
+
+__device__ __forceinline__ void load8(const int* p, int (&v)[8]) {
+  const int4 a = reinterpret_cast<const int4*>(p)[0];
+  const int4 b = reinterpret_cast<const int4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(int* p, const int (&v)[8]) {
+  reinterpret_cast<int4*>(p)[0] = make_int4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<int4*>(p)[1] = make_int4(v[4], v[5], v[6], v[7]);
+}
+
+template <typename T>
+__device__ __forceinline__ T* plane_of(int blk, T* y, T* u, T* v) {
+  return blk < 4 ? y : (blk == 4 ? u : v);
+}
+
+// ---- K10: 48 threads an MB, one 8-sample row of one of its 8x8 blocks
+// each, MBS MBs a block (the header says why)
+
+namespace k10 {
+
+constexpr int MBS = 2;              // MBs a block, even
+constexpr int BLOCK = 48 * MBS;     // MBS luma warps, then MBS / 2 chroma
+static_assert(MBS % 2 == 0, "a chroma warp holds the rows of two MBs");
+
+// floor(n / d) for every uint32 n and d >= 2, from d's reciprocal r:
+// floor(n (2^32 + m) / 2^(32 + s)), the sum n + t halved as t + (n - t) / 2
+// so that it stays in 32 bits (t = floor(n m / 2^32) <= n)
+__device__ __forceinline__ unsigned udiv(unsigned n, int4 r) {
+  const unsigned t = __umulhi(n, static_cast<unsigned>(r.x));
+  return (t + ((n - t) >> 1)) >> r.y;
+}
+
+// ops.trunc_div_pos(n, d) for |n| < 2^31
+__device__ __forceinline__ int tdiv(int n, int4 r) {
+  const int q = static_cast<int>(udiv(static_cast<unsigned>(abs(n)), r));
+  return n < 0 ? -q : q;
+}
+
+// ops.rounded_div_pos(n, d) for |n| + d / 2 < 2^31: n - d / 2 (n < 0) or
+// n + d / 2 (n >= 0) truncated, that is sign(n) floor((|n| + d / 2) / d)
+__device__ __forceinline__ int rdiv(int n, int4 r) {
+  const int q =
+      static_cast<int>(udiv(static_cast<unsigned>(abs(n) + r.w), r));
+  return n < 0 ? -q : q;
+}
+
+// ops.fdct8's pass1d over 8 samples, in place: output k is
+// fdct_out(sum_j x_j B[k][j]), the sum scaled * 45 / 128 (k 0) or / 2 and
+// truncated, then rounded / 128. B[k][7 - j] = (-1)^k B[k][j], so even k
+// sum (x_j + x_7-j) B[k][j] and odd k (x_j - x_7-j) B[k][j] over j < 4:
+// the same integer sums (|x| <= 2^15, |B| <= 128: no sum leaves 2^26).
+__device__ __forceinline__ void fdct8(int (&x)[8]) {
+  int e[4], o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    e[j] = x[j] + x[7 - j];
+    o[j] = x[j] - x[7 - j];
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    int acc = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc += ((k & 1) ? o[j] : e[j]) * B8(8 * k + j);
+    x[k] = wrap16(rdiv128(k == 0 ? acc * 45 / 128 : acc / 2));
+  }
 }
 
 // ops.quantize_8x8 then dequantize_8x8 of coefficient v (ops.quantize_8x8
@@ -324,29 +296,6 @@ __device__ __forceinline__ void quant(int v, bool intra, bool dc, int qp,
     q = wrap16(rdiv(qf - sign * qp, q2));
   }
   d = wrap16(tdiv(2 * q * qm.z * qp, sf));
-}
-
-// two int16 values in one word, the first in the low half
-__device__ __forceinline__ int pack16(int lo, int hi) {
-  return static_cast<int>((static_cast<unsigned>(lo) & 0xFFFFu) |
-                          (static_cast<unsigned>(hi) << 16));
-}
-
-__device__ __forceinline__ void load8(const int* p, int (&v)[8]) {
-  const int4 a = reinterpret_cast<const int4*>(p)[0];
-  const int4 b = reinterpret_cast<const int4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(int* p, const int (&v)[8]) {
-  reinterpret_cast<int4*>(p)[0] = make_int4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<int4*>(p)[1] = make_int4(v[4], v[5], v[6], v[7]);
-}
-
-template <typename T>
-__device__ __forceinline__ T* plane_of(int blk, T* y, T* u, T* v) {
-  return blk < 4 ? y : (blk == 4 ? u : v);
 }
 
 }  // namespace k10
@@ -478,9 +427,21 @@ encode_tail_kernel(const int* __restrict__ src_y,
   }
 }
 
-// ---- K11
+// ---- K11: K10's threads and passes, the forward half left out (the
+// header says why)
 
-__global__ void __launch_bounds__(THREADS)
+namespace k11 {
+
+constexpr int MBS = 2;              // MBs a block, even
+constexpr int BLOCK = 48 * MBS;     // MBS luma warps, then MBS / 2 chroma
+static_assert(MBS % 2 == 0, "a chroma warp holds the rows of two MBs");
+constexpr int SF = 16;              // tables.QUANTIZER_SCALE_FACTOR
+
+}  // namespace k11
+
+// The planes' 16-byte alignment is the wrapper's to ensure
+// (cuda_tail.decode_tail copies a plane that is not so aligned).
+__global__ void __launch_bounds__(k11::BLOCK)
 decode_tail_kernel(const int* __restrict__ coef_y,
                    const int* __restrict__ coef_u,
                    const int* __restrict__ coef_v,
@@ -492,38 +453,100 @@ decode_tail_kernel(const int* __restrict__ coef_y,
                    const int* __restrict__ pred_v,
                    const int16_t* __restrict__ stale_y,
                    const int16_t* __restrict__ stale_u,
-                   const int16_t* __restrict__ stale_v, Tables tb, int w,
+                   const int16_t* __restrict__ stale_v,
+                   const int* __restrict__ recip, int n, int w,
                    int* __restrict__ rec_y, int* __restrict__ rec_u,
                    int* __restrict__ rec_v, int16_t* __restrict__ carried_y,
                    int16_t* __restrict__ carried_u,
                    int16_t* __restrict__ carried_v, int* __restrict__ res_y,
                    int* __restrict__ res_u, int* __restrict__ res_v) {
-  __shared__ int buf[2 * THREADS];
-  __shared__ int B[64];
-  const int mb = blockIdx.x, t = threadIdx.x;
-  const Sample s(t, mb, w);
-  load_basis(B, tb);
+  using namespace k11;
+  __shared__ int tr[BLOCK / 32][4 * TB];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, r = lane & 7;
+
+  // this thread's MB, block (0-3 the luma quadrants, 4 U, 5 V) and row r
+  const bool luma = warp < MBS;
+  const int mb =
+      blockIdx.x * MBS + (luma ? warp : 2 * (warp - MBS) + (lane >> 4));
+  // whole 8-lane blocks leave: each transpose syncs only its block's lanes
+  if (mb >= n) return;
+  const int blk = luma ? lane >> 3 : 4 + ((lane >> 3) & 1);
+  const int wb = w / MB, bx = mb % wb, by = mb / wb;
+  const int pitch = luma ? w : w / 2;
+  const size_t corner =
+      luma ? static_cast<size_t>(by * MB + 8 * (blk >> 1)) * w + bx * MB +
+                 8 * (blk & 1)
+           : static_cast<size_t>(by * 8) * pitch + bx * 8;
+  const size_t at = corner + static_cast<size_t>(r) * pitch;
+  const unsigned lanes = 0xFFu << (lane & 24);   // this 8x8 block's
   const bool copy = is_copy[mb];
-  // the carry (engine.carry_coef): a copy MB keeps the stale coefficients
-  int v;
-  if (stale_y != nullptr && copy) {
-    v = s.of(stale_y, stale_u, stale_v)[s.at];
-  } else {
-    v = s.of(coef_y, coef_u, coef_v)[s.at];
+  const int qp = qp_in[mb];
+  const bool intra = intra_default[mb];
+
+  int p[8];
+  load8(plane_of(blk, pred_y, pred_u, pred_v) + at, p);
+  int* rec = plane_of(blk, rec_y, rec_u, rec_v) + at;
+  if (copy && res_y == nullptr) {
+    // no one reads its residual: the carry (engine.carry_coef keeps a copy
+    // MB's stale coefficients; carried_y is given only with stale_y) and
+    // the prediction, row for row
+    if (carried_y != nullptr) {
+      *reinterpret_cast<int4*>(plane_of(blk, carried_y, carried_u,
+                                        carried_v) + at) =
+          *reinterpret_cast<const int4*>(
+              plane_of(blk, stale_y, stale_u, stale_v) + at);
+    }
+    store8(rec, p);
+    return;
   }
-  if (carried_y != nullptr)
-    s.of(carried_y, carried_u, carried_v)[s.at] = int16_t(wrap16(v));
-  const int res = inverse(dequantize(v, s, intra_default[mb], qp_in[mb], tb),
-                          s, buf, B);
-  if (res_y != nullptr) s.of(res_y, res_u, res_v)[s.block_at(mb)] = res;
-  const int pred = s.of(pred_y, pred_u, pred_v)[s.at];
-  s.of(rec_y, rec_u, rec_v)[s.at] = copy ? pred : wrap16(add_w(res, pred));
+  // column r of the block's coefficients (the stale ones of a copy MB
+  // where the carry asks): for each j the 8 lanes read one 32-byte sector
+  int v[8];
+  const size_t col = corner + r;
+  if (copy && stale_y != nullptr) {
+    const int16_t* c = plane_of(blk, stale_y, stale_u, stale_v) + col;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c[j * pitch];
+  } else {
+    const int* c = plane_of(blk, coef_y, coef_u, coef_v) + col;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c[j * pitch];
+  }
+  if (carried_y != nullptr) {
+    int16_t* c = plane_of(blk, carried_y, carried_u, carried_v) + col;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[j * pitch] = static_cast<int16_t>(v[j]);
+  }
+  // ops.dequantize_8x8 of the coefficients (j, r) (the header's domain:
+  // C's / is trunc_div_pos, no product wraps)
+  const int* qm = recip + R_QM + (intra ? 0 : 256) + 2 + 4 * r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v[j] = wrap16(intra && j == 0 && r == 0
+        ? mul_w(v[j], __ldg(recip + (luma ? R_DCL : R_DCC) +
+                            4 * (qp & 255) + 2))
+        : mul_w(mul_w(2 * v[j], __ldg(qm + 32 * j)), qp) / SF);
+  }
+  idct8(v);                        // columns
+  transpose(v, tr[warp] + (lane >> 3) * TB, r, lanes);
+  idct8(v);                        // rows: v is the residual of row r
+  if (res_y != nullptr) {          // (N, 16, 16) luma, (N, 8, 8) chroma
+    store8(luma ? res_y + mb * 256 + (8 * (blk >> 1) + r) * 16 +
+                      8 * (blk & 1)
+                : plane_of(blk, res_y, res_u, res_v) + mb * 64 + r * 8,
+           v);
+  }
+  if (!copy) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p[j] = wrap16(add_w(v[j], p[j]));
+  }
+  store8(rec, p);
 }
 
 }  // namespace
 
 // planes as cuda_tail.encode_tail takes them, 16-byte aligned; recip: the
-// k10::R_WORDS reciprocal words
+// R_WORDS reciprocal words
 extern "C" int cairo_encode_tail(
     const int* src_y, const int* src_u, const int* src_v, const int* pred_y,
     const int* pred_u, const int* pred_v, const uint8_t* is_intra,
@@ -542,20 +565,27 @@ extern "C" int cairo_encode_tail(
   return static_cast<int>(cudaGetLastError());
 }
 
+// planes as cuda_tail.decode_tail takes them, 16-byte aligned (stale and
+// carried both given or both null; res null or given); recip: the R_WORDS
+// reciprocal words
 extern "C" int cairo_decode_tail(
     const int* coef_y, const int* coef_u, const int* coef_v, const int* qp,
     const uint8_t* intra_default, const uint8_t* is_copy, const int* pred_y,
     const int* pred_u, const int* pred_v, const int16_t* stale_y,
-    const int16_t* stale_u, const int16_t* stale_v, const int* basis,
-    const int* intra_qm, const int* inter_qm, const int* luma_dc,
-    const int* chroma_dc, int h, int w, int sf, int* rec_y, int* rec_u,
-    int* rec_v, int16_t* carried_y, int16_t* carried_u, int16_t* carried_v,
-    int* res_y, int* res_u, int* res_v, cudaStream_t stream) {
+    const int16_t* stale_u, const int16_t* stale_v, const int* recip, int h,
+    int w, int* rec_y, int* rec_u, int* rec_v, int16_t* carried_y,
+    int16_t* carried_u, int16_t* carried_v, int* res_y, int* res_u,
+    int* res_v, cudaStream_t stream) {
   const int n = (h / MB) * (w / MB);
-  const Tables tb{basis, intra_qm, inter_qm, luma_dc, chroma_dc, sf};
-  decode_tail_kernel<<<n, THREADS, 0, stream>>>(
+  if (n == 0) return 0;
+  decode_tail_kernel<<<(n + k11::MBS - 1) / k11::MBS, k11::BLOCK, 0,
+                       stream>>>(
       coef_y, coef_u, coef_v, qp, intra_default, is_copy, pred_y, pred_u,
-      pred_v, stale_y, stale_u, stale_v, tb, w, rec_y, rec_u, rec_v,
+      pred_v, stale_y, stale_u, stale_v, recip, n, w, rec_y, rec_u, rec_v,
       carried_y, carried_u, carried_v, res_y, res_u, res_v);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K11's scale factor, which cuda_tail holds against
+// tables.QUANTIZER_SCALE_FACTOR
+extern "C" int cairo_decode_tail_sf() { return k11::SF; }

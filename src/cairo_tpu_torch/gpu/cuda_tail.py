@@ -19,7 +19,9 @@ adds one to LAUNCHES[name].
   * decode_tail (K11): coefficient planes -> the optional stale carry of
     copy MBs (engine.carry_coef), dequantization, the inverse DCT
     (engine.residual) and the prediction add (engine.add_pred); on
-    request also the residual blocks the wave decode (K7) reads.
+    request also the residual blocks the wave decode (K7) reads. It reads
+    the reciprocal table's divisors (reciprocals(), built once per
+    device), as K10 does.
 
 Planes go in and out; the kernels cut the MBs themselves. This module and
 engine import each other: engine calls the wrappers, the plain versions
@@ -41,10 +43,9 @@ I32 = torch.int32
 I16 = torch.int16
 TOP = tables.MAX_QUANT_LEVELS - 1
 _FLAGS = (torch.bool, torch.uint8)
-_TABLES = ("B", "INTRA_QM", "INTER_QM", "LUMA_DC", "CHROMA_DC")
 # the ctypes signatures of csrc/tail.cu's C entries, the stream last
 ENCODE_SIGNATURE = "p" * 14 + "i" * 4 + "p" * 9
-DECODE_SIGNATURE = "p" * 17 + "i" * 3 + "p" * 10
+DECODE_SIGNATURE = "p" * 13 + "i" * 2 + "p" * 10
 
 LAUNCHES = {"encode_tail": 0, "decode_tail": 0}
 
@@ -140,24 +141,12 @@ def _ptrs(ts):
     return tuple(t.data_ptr() for t in ts)
 
 
-def _table_ptrs(dev):
-    c = ops.consts(dev)
-    return tuple(c[k].data_ptr() for k in _TABLES)
-
-
-def _new_planes(h, w, dtype, dev):
-    """Three planes (h, w), (h/2, w/2), (h/2, w/2) in one buffer."""
-    cs = h * w // 4
-    buf = torch.empty(h * w + 2 * cs, dtype=dtype, device=dev)
-    y, u, v = buf.split([h * w, cs, cs])
-    return y.view(h, w), u.view(h // 2, w // 2), v.view(h // 2, w // 2)
-
-
 # ----------------------------------------------------------------- K10
 
-# The layout of K10's reciprocal table (csrc/tail.cu, k10::R_*), in int32
-# words: an int4 (m, s - 1, d, d // 2) per divisor d, its reciprocal (m,
-# s) as reciprocal(d) gives it.
+# The layout of the reciprocal table (csrc/tail.cu, R_*), in int32 words:
+# an int4 (m, s - 1, d, d // 2) per divisor d, its reciprocal (m, s) as
+# reciprocal(d) gives it. K10 divides by the reciprocals; K11 reads the
+# matrix entries and DC scales from the d words.
 RECIP_LAYOUT = dict(QM=0, QP2=512, DCL=1536, DCC=2560, SF=3584, WORDS=3588)
 
 
@@ -174,8 +163,8 @@ def reciprocal(d):
 
 
 def reciprocals():
-    """K10's reciprocal table (RECIP_LAYOUT) as int32 words: every divisor
-    its quantizer meets. The intra and inter matrices, qp << 1 for qp
+    """The reciprocal table (RECIP_LAYOUT) as int32 words: every divisor
+    K10's quantizer meets. The intra and inter matrices, qp << 1 for qp
     0..255 (qp 0 as 1: K10 never divides by 0, and the plain version
     cannot either), the LUMA_DC and CHROMA_DC scales by qp and the scale
     factor."""
@@ -208,7 +197,7 @@ def _recip(index: int):
 
 def _aligned(t):
     """t, or a copy of it where its data does not start on 16 bytes (K10's
-    vector loads)."""
+    and K11's vector loads)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -277,25 +266,21 @@ def encode_tail(src, pred, is_intra, is_motion, is_copy, quality, adaptive,
 
 # ----------------------------------------------------------------- K11
 
-def decode_tail(coef, qp, intra_default, is_copy, pred, stale=None,
-                residual=False):
-    """The reconstruction of one fast-mode frame before the deblock
-    (engine.decode_planes). Returns (rec, carried, res): the int32
-    reconstruction planes (a copy MB's is its prediction); where `stale`
-    is given, the frame's coefficient planes after the carry, int16 (else
-    None); where `residual` is set, the residual blocks ((N, 16, 16),
-    (N, 8, 8), (N, 8, 8)) int32 that K7 reads (else None).
+@functools.lru_cache(maxsize=None)
+def _scale_factor():
+    """K11's compile-time scale factor (csrc/tail.cu, k11::SF), checked
+    once a process against tables.QUANTIZER_SCALE_FACTOR."""
+    sf = _build.kernel_fn("cairo_decode_tail_sf", "")()
+    if sf != tables.QUANTIZER_SCALE_FACTOR:
+        raise RuntimeError(f"decode_tail: the kernel divides by {sf}, the "
+                           f"tables by {tables.QUANTIZER_SCALE_FACTOR}")
+    return sf
 
-    coef: (Y (H, W), U, V (H/2, W/2)) int32 coefficient planes; qp: (N,)
-    int32; intra_default, is_copy: (N,) bool or uint8; pred: int32
-    prediction planes; stale: the state's int16 coefficient planes, which
-    copy MBs take in place of `coef` (decode_step_coo and the wave
-    decode), or None. The inputs are left as they are."""
-    if coef[0].device.type == "cpu":
-        return decode_tail_plain(coef, qp, intra_default, is_copy, pred,
-                                 stale, residual)
-    h, w, n = _grid(coef[0], "decode_tail")
-    dev = coef[0].device
+
+def _decode_messages(coef, qp, intra_default, is_copy, pred, stale, h, w,
+                     n, dev):
+    """Raises the message decode_tail gives for the first argument it
+    cannot take (called once _build.check_many has refused one)."""
     _check_planes(coef, "coef", I32, h, w, dev)
     _check_planes(pred, "pred", I32, h, w, dev)
     if stale is not None:
@@ -303,21 +288,69 @@ def decode_tail(coef, qp, intra_default, is_copy, pred, stale=None,
     _check_field(qp, "qp", (I32,), n, dev)
     for t, name in ((intra_default, "intra_default"), (is_copy, "is_copy")):
         _check_field(t, name, _FLAGS, n, dev)
-    rec = _new_planes(h, w, I32, dev)
-    carried = None if stale is None else _new_planes(h, w, I16, dev)
-    res = None
+
+
+def decode_tail(coef, qp, intra_default, is_copy, pred, stale=None,
+                residual=False):
+    """The reconstruction of one fast-mode frame before the deblock
+    (engine.decode_planes). Returns (rec, carried, res): the int32
+    reconstruction planes (a copy MB's is its prediction); where `stale`
+    is given, the frame's coefficient planes after the carry, int16 (else
+    None); where `residual` is set, the residual blocks ((N, 16, 16),
+    (N, 8, 8), (N, 8, 8)) int32 that K7 reads (else None). The outputs
+    are views into one buffer.
+
+    coef: (Y (H, W), U, V (H/2, W/2)) int32 coefficient planes, int16
+    values (csrc/tail.cu's domain); qp: (N,) int32, 0..255;
+    intra_default, is_copy: (N,) bool or uint8; pred: int32 prediction
+    planes; stale: the state's int16 coefficient planes, which copy MBs
+    take in place of `coef` (decode_step_coo and the wave decode), or
+    None. The inputs are left as they are."""
+    if coef[0].device.type == "cpu":
+        return decode_tail_plain(coef, qp, intra_default, is_copy, pred,
+                                 stale, residual)
+    h, w, n = _grid(coef[0], "decode_tail")
+    dev = coef[0].device
+    ys, cs = (h, w), (h // 2, w // 2)
+    shapes = (ys, cs, cs)
+    try:
+        _build.check_many([
+            *((t, f"coef_{p}", (I32,), s) for t, p, s in zip(coef, "yuv",
+                                                              shapes)),
+            *((t, f"pred_{p}", (I32,), s) for t, p, s in zip(pred, "yuv",
+                                                              shapes)),
+            *((t, f"stale_{p}", (I16,), s) for t, p, s in zip(
+                stale or (), "yuv", shapes)),
+            (qp, "qp", (I32,), (n,)),
+            (intra_default, "intra_default", _FLAGS, (n,)),
+            (is_copy, "is_copy", _FLAGS, (n,))], dev.index)
+    except ValueError:
+        _decode_messages(coef, qp, intra_default, is_copy, pred, stale, h,
+                         w, n, dev)
+        raise
+    _scale_factor()
+    planes = [_aligned(t) for t in (*coef, *pred, *(stale or ()))]
+    hw, chw = h * w, h * w // 4
+    sizes = [4 * hw, 4 * chw, 4 * chw]
+    if stale is not None:
+        sizes += [2 * hw, 2 * chw, 2 * chw]
     if residual:
-        buf = torch.empty(n * 384, dtype=I32, device=dev)
-        y, u, v = buf.split([n * 256, n * 64, n * 64])
-        res = (y.view(n, MB, MB), u.view(n, MB // 2, MB // 2),
-               v.view(n, MB // 2, MB // 2))
+        sizes += [4 * 256 * n, 4 * 64 * n, 4 * 64 * n]
+    parts = torch.empty(sum(sizes), dtype=torch.uint8, device=dev) \
+        .split(sizes)
+    rec = tuple(p.view(I32).view(s) for p, s in zip(parts, shapes))
+    carried = None if stale is None else tuple(
+        p.view(I16).view(s) for p, s in zip(parts[3:6], shapes))
+    res = None if not residual else tuple(
+        p.view(I32).view(n, m, m) for p, m in zip(parts[-3:],
+                                                  (MB, MB // 2, MB // 2)))
     none = (None, None, None)
     fn = _build.kernel_fn("cairo_decode_tail", DECODE_SIGNATURE)
-    _build.launch(fn, dev, *_ptrs(coef), qp.data_ptr(),
+    _build.launch(fn, dev, *_ptrs(planes[:3]), qp.data_ptr(),
                   intra_default.data_ptr(), is_copy.data_ptr(),
-                  *_ptrs(pred), *(none if stale is None else _ptrs(stale)),
-                  *_table_ptrs(dev), h, w, tables.QUANTIZER_SCALE_FACTOR,
-                  *_ptrs(rec), *(none if carried is None else _ptrs(carried)),
+                  *_ptrs(planes[3:6]), *(_ptrs(planes[6:]) or none),
+                  _recip(dev.index).data_ptr(), h, w, *_ptrs(rec),
+                  *(none if carried is None else _ptrs(carried)),
                   *(none if res is None else _ptrs(res)))
     LAUNCHES["decode_tail"] += 1
     return rec, carried, res

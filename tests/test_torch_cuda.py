@@ -1658,3 +1658,79 @@ def test_encode_tail_unaligned_planes(dev):
         call = list(args)
         call[i] = shifted(args[i])
         _same_outputs(cuda_tail.encode_tail(*call), want)
+
+
+# ---- K11 after its redesign: 48 threads an MB, rows in registers, the
+# copy MBs' work skipped where no residual is asked
+
+def _k11_args(dev, rng, h, w, copy_share, qp_value):
+    """decode_tail's arguments over the whole int16 range (every 8x8
+    block's corners at -32768 and 32767), a `copy_share` of the MBs copy
+    (a random set of that size), the others intra-default or inter at
+    random, every MB at qp_value; the stale planes last."""
+    n = (h // 16) * (w // 16)
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    coef = [rng.integers(-32768, 32768, s) for s in shapes]
+    stale = [rng.integers(-32768, 32768, s) for s in shapes]
+    for planes in (coef, stale):
+        for p in planes:
+            p[::8, ::8], p[7::8, 7::8] = -32768, 32767
+    is_copy = np.zeros(n, bool)
+    is_copy[rng.permutation(n)[:int(round(n * copy_share))]] = True
+    intra_default = ~is_copy & (rng.random(n) < 0.5)
+    pred = [rng.integers(-300, 560, s) for s in shapes]
+    return (_one_buffer(coef, torch.int32, dev),
+            torch.full((n,), qp_value, dtype=torch.int32, device=dev),
+            torch.as_tensor(intra_default).to(dev),
+            torch.as_tensor(is_copy).to(dev),
+            _one_buffer(pred, torch.int32, dev),
+            _one_buffer(stale, torch.int16, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [0, 31])
+@pytest.mark.parametrize("copy_share", [0.0, 0.5, 1.0],
+                         ids=["copy0", "copy50", "copy100"])
+@pytest.mark.parametrize("size", TAIL_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_decode_tail_copy_shares(dev, size, copy_share, qp):
+    """At the 1080p grid and TAIL_SIZES' odd grids, with no, half and
+    every MB a copy, at qp 0 and 31, with each combination of the carry
+    and the residual blocks: exact, twice, inputs unchanged, one launch a
+    call."""
+    rng = np.random.default_rng(size[0] + size[1] + int(copy_share * 10)
+                                + qp)
+    args = _k11_args(dev, rng, *size, copy_share, qp)
+    for stale in (args[5], None):
+        for residual in (True, False):
+            rec, carried, res = _check_tail("decode_tail", args[:5],
+                                            stale=stale, residual=residual)
+            if copy_share == 1.0:   # every MB takes its prediction
+                for r, p in zip(rec, args[4]):
+                    _eq(r, p)
+            if stale is not None and copy_share == 1.0:
+                for c, s in zip(carried, stale):
+                    _eq(c, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["coef", "pred", "stale"])
+def test_decode_tail_unaligned_planes(dev, which):
+    """Plane views that do not start on 16 bytes (the wrapper copies them)
+    give the aligned planes' outputs, with the carry and the residual
+    blocks, and leave the views as they were."""
+    rng = np.random.default_rng(13)
+    args = list(_k11_args(dev, rng, 48, 80, 0.5, 31))
+    i = {"coef": 0, "pred": 4, "stale": 5}[which]
+    shifted = []
+    for p in args[i]:
+        buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=dev)
+        v = buf[1:].view(p.shape)
+        v.copy_(p)
+        assert v.data_ptr() % 16
+        shifted.append(v)
+    want = cuda_tail.decode_tail(*args[:5], stale=args[5], residual=True)
+    call = list(args)
+    call[i] = tuple(shifted)
+    _check_tail("decode_tail", call[:5], stale=call[5], residual=True)
+    _same_outputs(cuda_tail.decode_tail(*call[:5], stale=call[5],
+                                        residual=True), want)

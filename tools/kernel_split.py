@@ -14,11 +14,12 @@ is what that part costs. A variant's outputs are wrong by design; only
 its time is read. Each variant is one `nvcc` of the patched source into a
 library of its own (all started together), loaded in place of the
 checkout's kernel library while its wrapper runs on the arguments the
-main path gives it (GpuEncoder on two seeded 1920x1080 frames at q16,
-the inter frame's call kept, chip_smoke.kept_calls). Time: the device
-time of the kernel from a torch.profiler trace (chip_smoke.device_ms, 10
-calls), each variant in turn, twice (turns base, v1, ..., vn, vn, ...,
-base); for the unchanged source also the median CUDA-event time of
+main path gives it (GpuEncoder and GpuDecoder on two seeded 1920x1080
+frames at q16, the inter frame's call kept, chip_smoke.kept_calls).
+Time: the device time of the kernel from a torch.profiler trace
+(chip_smoke.device_ms, 10 calls), each variant in turn, twice (turns
+base, v1, ..., vn, vn, ..., base); for the unchanged source also the
+median CUDA-event time of
 single calls (chip_smoke.cuda_ms, 20 calls), whose excess over the
 device time is the wrapper's host work. Prints the card's name and
 power limit, one line per set and a last line with every set's JSON.
@@ -59,6 +60,30 @@ VARIANTS = {
              "const int v = x;"),
             (None, r"inverse\(dequantize\(q, s, intra, qp, tb\), s, buf, "
              r"B\)", "dequantize(q, s, intra, qp, tb)")],
+    }),
+    # K11 before its redesign (one 384-thread block an MB, the passes
+    # through shared memory), for an older checkout's source (--src)
+    "k11-old": ("cuda_tail", "decode_tail", "decode_tail_kernel", "tail.cu", {
+        "no_shared_passes": [(None, r"inverse\(dequantize\(v, s, "
+                              r"intra_default\[mb\], qp_in\[mb\], tb\),"
+                              r"\s*s, buf, B\)",
+                              "dequantize(v, s, intra_default[mb], "
+                              "qp_in[mb], tb)")],
+        "no_division": [(None, r"trunc_div_pos\(mul_w\(mul_w\(mul_w\(2, v\), "
+                         r"qm\), qp\), tb\.sf\)",
+                         "(mul_w(mul_w(mul_w(2, v), qm), qp) >> 4)")],
+        "basis_immediate": [(None, r"B\[j \* 8 \+ s\.[rc]\]",
+                             "(128 - 13 * j)")],
+        "terms_by_constant": [(None, r"return j == 0 \? trunc_div_pos\("
+                               r"mul_w\(p, 45\), 128\) : trunc_div_pos\(p, "
+                               r"2\);",
+                               "return j == 0 ? p * 45 / 128 : p / 2;")],
+        "no_shared_passes_no_division": [
+            (None, r"inverse\(dequantize\(v, s, intra_default\[mb\], "
+             r"qp_in\[mb\], tb\),\s*s, buf, B\)",
+             "dequantize(v, s, intra_default[mb], qp_in[mb], tb)"),
+            (None, r"trunc_div_pos\(mul_w\(mul_w\(mul_w\(2, v\), qm\), qp\), "
+             r"tb\.sf\)", "(mul_w(mul_w(mul_w(2, v), qm), qp) >> 4)")],
     }),
     # K9 before its redesign (one launch a reference), for an older
     # checkout's source (--src)
@@ -125,6 +150,55 @@ VARIANTS = {
                     "constexpr int WARPS = 4;")],
         "warps8": [(None, r"constexpr int WARPS = \d+;",
                     "constexpr int WARPS = 8;")],
+    }),
+
+    # K11 redesigned: K10's threads and passes, the forward half left out
+    "k11": ("cuda_tail", "decode_tail", "decode_tail_kernel", "tail.cu", {
+        "no_dequantization": [(None, r"v\[j\] = wrap16\(intra && j == 0[^;]*;",
+                               "v[j] = v[j];")],
+        "no_qm_loads": [(None, r"__ldg\(qm \+ 32 \* j\)", "(16 + j)")],
+        "no_idct": [(None, r"\n  idct8\(v\);[^\n]*", "")],
+        "no_transpose": [(None, r"\n  transpose\(v, tr[^\n]*", "")],
+        "loads_and_stores_only": [
+            (None, r"v\[j\] = wrap16\(intra && j == 0[^;]*;", "v[j] = v[j];"),
+            (None, r"\n  idct8\(v\);[^\n]*", ""),
+            (None, r"\n  transpose\(v, tr[^\n]*", "")],
+        "scalar_access": [
+            (None, r"(void load8\(const int\* p, int \(&v\)\[8\]\) \{\n)"
+             r"[^}]*\}", r"\1#pragma unroll\n  for (int k = 0; k < 8; ++k) "
+             r"v[k] = p[k];\n}"),
+            (None, r"(void store8\(int\* p, const int \(&v\)\[8\]\) \{\n)"
+             r"[^}]*\}", r"\1#pragma unroll\n  for (int k = 0; k < 8; ++k) "
+             r"p[k] = v[k];\n}")],
+        # the design not taken: rows loaded with 16-byte loads (the carried
+        # row one 16-byte store), a transpose turning them into columns
+        "row_loads": [
+            (None, r"(?s)  int v\[8\];\n  const size_t col = corner \+ r;\n"
+             r".*?static_cast<int16_t>\(v\[j\]\);\n  \}\n",
+             "  int v[8];\n"
+             "  if (copy && stale_y != nullptr) {\n"
+             "    const int4 a = *reinterpret_cast<const int4*>(\n"
+             "        plane_of(blk, stale_y, stale_u, stale_v) + at);\n"
+             "    const int w4[4] = {a.x, a.y, a.z, a.w};\n"
+             "#pragma unroll\n"
+             "    for (int k = 0; k < 4; ++k) {\n"
+             "      v[2 * k] = (w4[k] << 16) >> 16;\n"
+             "      v[2 * k + 1] = w4[k] >> 16;\n"
+             "    }\n"
+             "  } else {\n"
+             "    load8(plane_of(blk, coef_y, coef_u, coef_v) + at, v);\n"
+             "  }\n"
+             "  if (carried_y != nullptr) {\n"
+             "    *reinterpret_cast<int4*>(plane_of(blk, carried_y, "
+             "carried_u, carried_v) + at) =\n"
+             "        make_int4(pack16(v[0], v[1]), pack16(v[2], v[3]), "
+             "pack16(v[4], v[5]), pack16(v[6], v[7]));\n"
+             "  }\n"
+             "  transpose(v, tr[warp] + (lane >> 3) * TB, r, lanes);\n")],
+        "mbs4": [(None, r"(namespace k11 \{\n\n)constexpr int MBS = \d+;",
+                  r"\1constexpr int MBS = 4;")],
+        "mbs8": [(None, r"(namespace k11 \{\n\n)constexpr int MBS = \d+;",
+                  r"\1constexpr int MBS = 8;")],
     }),
 }
 
@@ -198,12 +272,12 @@ def main():
     for s in opts.sets:
         mod_name, fn_name, trace, _, variants = VARIANTS[s]
         mod = mods[mod_name]
-        enc = api.GpuEncoder()
+        enc, dec = api.GpuEncoder(), api.GpuDecoder()
         enc.set_quality(16)
 
         def run():
             for f in frames:
-                enc.encode(f)
+                dec.decode(enc.encode(f))
             torch.cuda.synchronize()
 
         args, kw = kept_calls(mod, fn_name, run)[-1]
