@@ -432,7 +432,8 @@ def test_chip_smoke_measures_the_pipelined_paths():
         assert rec[f"{path}_host_frames"] == 0
         assert rec[f"{path}_launches"] == {"k": 0}  # no kernel on the CPU
         assert rec[f"{path}_encode_fps"] > 0 and rec[f"{path}_decode_fps"] > 0
-        assert set(rec[f"{path}_encode_stage_ms"]) == {"device", "entropy"}
+        assert set(rec[f"{path}_encode_stage_ms"]) == {
+            "dispatch", "fetch", "entropy"}
         assert set(rec[f"{path}_decode_stage_ms"]) == {
             "entropy", "dispatch", "device_and_fetch", "convert"}
         for key in ("threads_ms", "loop_threads_ms"):
