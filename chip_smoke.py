@@ -46,7 +46,12 @@ Phases, one line each with the elapsed seconds:
      every MB a copy; K11 without the carry, with the residual blocks K7
      reads, on int16-range coefficients and with every MB a copy and the
      carry, also timed), each twice with identical outputs and its inputs
-     unchanged, with their times, bounds and ptxas usage;
+     unchanged, with their times, bounds and ptxas usage; K12
+     unpack_yuv5d in both layouts (planes, and the conformance step's
+     blocks with self_sad) against its plain versions at 1920x1088 on a
+     frame's 5-bit wire and on its exception section rewritten (negative,
+     dropped and repeated positions, crowded rows), twice, exact, with
+     its times against the plain torch sequence it replaces;
   3. main path: GpuEncoder + GpuDecoder over 1 intra + 4 inter synthetic
      1920x1080 frames at q16; every decoded frame must equal the encoder's
      reconstruction and the native sequential C++ decoder's output, no
@@ -54,7 +59,7 @@ Phases, one line each with the elapsed seconds:
      launched, K3 once per reference search (as often as K2), K9 once
      per inter frame (for all three references), K8 once per encoded and
      once per decoded frame, K10 once per encoded and K11 once per
-     decoded frame;
+     decoded frame, K12 once per encoded frame;
   4. CPU against card: 3 frames at 176x144 encoded with device="cpu" and
      on the card give byte-identical chunks;
   2b. the conformance path's kernels against their plain versions at its
@@ -84,8 +89,9 @@ Phases, one line each with the elapsed seconds:
      reconstruction and the native sequential C++ decoder's output, K4 at
      33/17, K5, K6 and K7 must each have been launched (K6 once per frame,
      K7 once per decode frame with active waves, K8 once per encoded and
-     once per decoded frame, K11 once per decoded frame, K10 never: the
-     conformance encoder's tail is K6's) and K7 must have rebuilt
+     once per decoded frame, K11 once per decoded frame, K12 once per
+     encoded frame, K10 never: the conformance encoder's tail is K6's)
+     and K7 must have rebuilt
      intra-motion blocks;
      prints the decode fps
      and the waves and members per frame;
@@ -99,7 +105,8 @@ Phases, one line each with the elapsed seconds:
      loop's, no frame took the host decoder and every kernel of the path
      was launched in the pipelined run (its counts set to 0 just before
      it), K9 once per fast inter frame, K10 once per fast encoded
-     frame and K11 once per decoded frame of either path; prints both fps
+     frame, K11 once per decoded frame and K12 once per encoded frame
+     of either path; prints both fps
      (as bench.py counts them: the yield intervals of the measured
      frames) and the per-stage medians of each run;
   8. tiled: TiledEncoder and TiledDecoder (gpu/tiled.py) over 1 intra + 4
@@ -154,6 +161,7 @@ beside the 517 it took before K9 took every reference and the merge.
 from __future__ import annotations
 
 import faulthandler
+import functools
 import json
 import os
 import re
@@ -1135,6 +1143,66 @@ def phase_kernels_deblock(torch, gpu):
         ops=filters * FILTER_OPS, max_abs_err=err)
 
 
+def unpack_outputs(out):
+    """K12's outputs as one flat tuple: the planes, or the blocks and
+    self_sad."""
+    return out if len(out) == 3 else (*out[0], out[1])
+
+
+def phase_kernels_unpack(torch, np, gpu, H=1088, W=1920):
+    """K12 in both layouts against its plain versions at 1920x1088: on
+    phase 5's first inter frame's 5-bit wire and on its exception section
+    rewritten as the card tests rewrite it (the plain version reads the
+    wire without the entries a later one overrides), each twice; returns
+    its record, the times of the blocks layout (the conformance step's)
+    and of the planes layout under planes_*."""
+    from cairo_tpu_torch import native
+    from cairo_tpu_torch.synth import synth_frames
+    from util_wire import CASES, last_entries_only, rewritten
+
+    wire = gpu["wire"]
+    frame = synth_frames(1920, 1080, 2, seed=SEED % 991)[1]
+    kind, w5 = native.rgb_to_yuv5d(frame, W, H, 1, 16)
+    if kind != "yuv5d":
+        fail(f"K12: the 1080p frame packed as {kind}, not the 5-bit wire")
+    layouts = (("planes_", wire.unpack_yuv5d, wire.unpack_yuv5d_plain),
+               ("", wire.unpack_yuv5d_blocks, wire.unpack_yuv5d_blocks_plain))
+    err = 0
+    for i, case in enumerate(CASES):
+        raw = rewritten(w5, W, H, case, seed=i)
+        buf = torch.from_numpy(raw[8:]).cuda()
+        ref = torch.from_numpy(last_entries_only(raw, W, H)[8:]).cuda()
+        for pre, fn, plain in layouts:
+            label = f"K12 {pre or 'blocks_'}{case}"
+            before = wire.LAUNCHES["unpack_yuv5d"]
+            runs = [unpack_outputs(fn(buf, H, W, 1920, 1080))
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            launched = wire.LAUNCHES["unpack_yuv5d"] - before
+            if launched != 2:
+                fail(f"{label}: {launched} launches for 2 calls")
+            compare(torch, f"{label}, second run", runs[1], runs[0])
+            err = max(err, compare(torch, label, runs[0], unpack_outputs(
+                plain(ref, H, W, 1920, 1080))))
+    log(f"K12: both layouts exact and the same on two runs over "
+        f"{len(CASES)} exception sections at {W}x{H}")
+    buf = torch.from_numpy(w5[8:]).cuda()
+    fields = H * W * 3 // 2
+    rec = dict(max_abs_err=err,
+               # a field's extraction, its add in the scan, the mask
+               ops=10 * fields)
+    for pre, fn, plain in layouts:
+        call = functools.partial(fn, buf, H, W, 1920, 1080)
+        rec[pre + "ms"] = cuda_ms(torch, call, 10)
+        rec[pre + "device_ms"] = device_ms(torch, call, "unpack_yuv5d_kernel")
+        rec[pre + "plain_ms"] = cuda_ms(
+            torch, functools.partial(plain, buf, H, W, 1920, 1080), 3)
+        # the wire read once, the int32 samples (and self_sad) written once
+        rec[pre + "bytes"] = (buf.numel() + 4 * fields
+                              + (0 if pre else 4 * (H // 16) * (W // 16)))
+    return rec
+
+
 def phase_kernels_conformance(torch, np, gpu, H=1088, W=1920):
     """K4 at pads 33/17, K5 and K6 against their plain versions at the
     conformance path's shapes; returns per-kernel records."""
@@ -1415,8 +1483,9 @@ def phase_conformance(torch, np, gpu):
     frames = synth_frames(1920, 1080, 3, seed=SEED % 991)
     counters = (gpu["cuda_pred"].LAUNCHES, gpu["cuda_inter"].LAUNCHES,
                 gpu["cuda_wave"].LAUNCHES, gpu["cuda_wavedec"].LAUNCHES,
-                gpu["cuda_deblock"].LAUNCHES, gpu["cuda_tail"].LAUNCHES)
-    k8, tail = counters[4], counters[5]
+                gpu["cuda_deblock"].LAUNCHES, gpu["cuda_tail"].LAUNCHES,
+                gpu["wire"].LAUNCHES)
+    k8, tail, k12 = counters[4], counters[5], counters[6]
     for c in counters:
         for k in c:
             c[k] = 0
@@ -1424,13 +1493,15 @@ def phase_conformance(torch, np, gpu):
     enc.set_quality(16)
     chunks, recons, enc_s, stages = [], [], [], {}
     for i, f in enumerate(frames):
-        before = k8["deblock_frame"]
+        before, unpacked = k8["deblock_frame"], k12["unpack_yuv5d"]
         t0 = time.perf_counter()
         chunks.append(enc.encode(f))
         torch.cuda.synchronize()
         enc_s.append(time.perf_counter() - t0)
         launched_once("conformance path", f"encoded frame {i}", k8, before,
                       "deblock_frame", "K8")
+        launched_once("conformance path", f"encoded frame {i}", k12,
+                      unpacked, "unpack_yuv5d", "K12")
         for k, v in enc.last_stats["stage_ms"].items():
             stages.setdefault(k, []).append(v)
         meta, arrays = enc.state_dict()
@@ -1461,7 +1532,8 @@ def phase_conformance(torch, np, gpu):
     launches = {"pred_planes_wide": counters[0]["pred_planes_wide"],
                 "inter_search": counters[1]["inter_search"],
                 "wave_pass": counters[2]["wave_pass"],
-                **counters[3], **k8, "decode_tail": tail["decode_tail"]}
+                **counters[3], **k8, "decode_tail": tail["decode_tail"],
+                **k12}
     if tail["encode_tail"]:
         fail(f"conformance path: K10 launched {tail['encode_tail']} times "
              f"(the conformance encoder's tail is K6's)")
@@ -1528,10 +1600,10 @@ PIPELINE_PATHS = {
     "fast": ("GpuEncoder", ("chroma_max_maps", "dense_select",
                             "gather_windows", "pred_planes",
                             "deblock_frame", "subpel_scan", "encode_tail",
-                            "decode_tail")),
+                            "decode_tail", "unpack_yuv5d")),
     "conformance": ("ConformanceGpuEncoder", (
         "pred_planes_wide", "inter_search", "wave_pass", "wave_decode",
-        "deblock_frame", "decode_tail"))}
+        "deblock_frame", "decode_tail", "unpack_yuv5d"))}
 
 
 def measure_pipelined(api, frames, warm, path, quality=16, device="cuda",
@@ -1650,7 +1722,7 @@ def phase_pipelined(gpu, smi):
     frames = synth_frames(1920, 1080, 22, seed=SEED % 983)
     counters = [gpu[m].LAUNCHES for m in (
         "cuda_motion", "cuda_pred", "cuda_inter", "cuda_wave",
-        "cuda_wavedec", "cuda_deblock", "cuda_tail")]
+        "cuda_wavedec", "cuda_deblock", "cuda_tail", "wire")]
     recs = {}
     for path, n in (("fast", 22), ("conformance", 10)):
         t0 = time.perf_counter()
@@ -1678,6 +1750,10 @@ def phase_pipelined(gpu, smi):
         if k11 != n:
             fail(f"phase 7: the {path} pipelined run launched K11 {k11} times "
                  f"for {n} decoded frames (once a frame expected)")
+        k12 = rec[f"{path}_launches"]["unpack_yuv5d"]
+        if k12 != n:
+            fail(f"phase 7: the {path} pipelined run launched K12 {k12} times "
+                 f"for {n} encoded frames (once a frame expected)")
         log(f"phase 7: {path} 1920x1080 q16, {n - 2} measured frames after "
             f"2 on {smi}: encode_many {rec[f'{path}_encode_fps']:.3f} fps "
             f"(loop {rec[f'{path}_encode_loop_fps']:.3f}), decode_many "
@@ -1732,8 +1808,9 @@ def phase_main(torch, np, gpu):
     api = gpu["api"]
     frames = synth_frames(1920, 1080, 5, seed=SEED % 1000)
     k8, tail = gpu["cuda_deblock"].LAUNCHES, gpu["cuda_tail"].LAUNCHES
+    k12 = gpu["wire"].LAUNCHES
     for mod in (gpu["cuda_motion"], gpu["cuda_pred"], gpu["cuda_deblock"],
-                gpu["cuda_tail"]):
+                gpu["cuda_tail"], gpu["wire"]):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     enc = api.GpuEncoder()
@@ -1741,6 +1818,7 @@ def phase_main(torch, np, gpu):
     chunks, recons, enc_s, stages = [], [], [], {}
     for i, f in enumerate(frames):
         before, k10 = k8["deblock_frame"], tail["encode_tail"]
+        unpacked = k12["unpack_yuv5d"]
         t0 = time.perf_counter()
         chunks.append(enc.encode(f))
         torch.cuda.synchronize()
@@ -1749,6 +1827,8 @@ def phase_main(torch, np, gpu):
                       "deblock_frame", "K8")
         launched_once("main path", f"encoded frame {i}", tail, k10,
                       "encode_tail", "K10")
+        launched_once("main path", f"encoded frame {i}", k12, unpacked,
+                      "unpack_yuv5d", "K12")
         recons.append(enc.peek_destination())
         for k, v in enc.last_stats["stage_ms"].items():
             stages.setdefault(f"encode.{k}", []).append(v)
@@ -1769,7 +1849,7 @@ def phase_main(torch, np, gpu):
     launches = {**gpu["cuda_motion"].LAUNCHES,
                 **{k: gpu["cuda_pred"].LAUNCHES[k]
                    for k in ("gather_windows", "pred_planes")}, **k8,
-                **tail}
+                **tail, **k12}
 
     for i, (o, r) in enumerate(zip(outs, recons)):
         if not np.array_equal(o, r):
@@ -2321,7 +2401,7 @@ PORT_KERNELS = ("chroma_max_kernel", "dense_select_kernel",
                 "gather_windows_kernel", "pred_planes_kernel",
                 "inter_search_kernel", "wave_decode_kernel", "wave_kernel",
                 "deblock_kernel", "subpel_scan_kernel", "encode_tail_kernel",
-                "decode_tail_kernel")
+                "decode_tail_kernel", "unpack_yuv5d_kernel")
 # CUDA launches of a traced fast inter frame (encode + decode, 1080p q16)
 # before K9 took every reference and the classification merge, on NVIDIA
 # H100 80GB HBM3 (1,592 before K10 and K11, 5,981 before K9)
@@ -2478,18 +2558,19 @@ def main():
     from cairo_tpu_torch.gpu import (_build, api, cuda_deblock, cuda_inter,
                                      cuda_motion, cuda_pred, cuda_tail,
                                      cuda_wave, cuda_wavedec, deblock, ops,
-                                     shard, tiled, wavefront)
+                                     shard, tiled, wavefront, wire)
     gpu = dict(api=api, cuda_motion=cuda_motion, cuda_pred=cuda_pred,
                cuda_inter=cuda_inter, cuda_wave=cuda_wave,
                cuda_wavedec=cuda_wavedec, cuda_deblock=cuda_deblock,
                cuda_tail=cuda_tail, deblock=deblock, ops=ops, shard=shard,
-               tiled=tiled, wavefront=wavefront)
+               tiled=tiled, wavefront=wavefront, wire=wire)
     secs = _build.build_all()
     log(f"phase 1: built kernels in {secs['kernels_s']:.1f}s and the native "
         f"library in {secs['native_s']:.1f}s")
     log("kernels: K1 chroma_max_maps, K2 dense_select, K3 gather_windows, "
         "K4 pred_planes, K5 inter_search, K6 wave_pass, K7 wave_decode, "
-        "K8 deblock_frame, K9 subpel_scan, K10 encode_tail, K11 decode_tail")
+        "K8 deblock_frame, K9 subpel_scan, K10 encode_tail, K11 decode_tail, "
+        "K12 unpack_yuv5d")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gpu, smi)
         faulthandler.cancel_dump_traceback_later()
@@ -2507,6 +2588,7 @@ def main():
     recs["K9"]["max_abs_err"] = max(recs["K9"]["max_abs_err"],
                                     single["max_abs_err"])
     recs.update(phase_kernels_tail(torch, np, gpu))
+    recs["K12"] = phase_kernels_unpack(torch, np, gpu)
     for k, r in recs.items():
         dev = f", kernel alone {r['device_ms']:.3f} ms" if "device_ms" in r \
             else ""
@@ -2553,6 +2635,18 @@ def main():
         f"{r['all_copy_plain_ms']:.3f} ms), bound "
         f"{r['all_copy_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) on "
         f"{smi}")
+    r = recs["K12"]
+    for layout, pre in (("blocks and self_sad", ""), ("planes", "planes_")):
+        kname = f"unpack_yuv5d_kernel<{int(not pre)}>"
+        if kname not in usage:
+            fail(f"ptxas reported nothing for {kname}")
+        log(f"phase 2: K12 at 1920x1088, {layout} "
+            f"({r[pre + 'bytes'] / 1e6:.2f} MB): {r[pre + 'ms']:.4f} ms, "
+            f"kernel alone {r[pre + 'device_ms']:.4f} ms (plain "
+            f"{r[pre + 'plain_ms']:.3f} ms), bound "
+            f"{r[pre + 'bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) / "
+            f"{r['ops'] / INT_OPS_PER_S * 1e3:.4f} ms (operations); "
+            f"{usage[kname]} on {smi}")
     k8 = recs["K8"]
     if "deblock_kernel" not in usage:
         fail("ptxas reported nothing for deblock_kernel")
@@ -2602,14 +2696,15 @@ def main():
                   "gather_windows_kernel<2>", "pred_planes_kernel<17,9>",
                   "pred_planes_kernel<33,17>", "inter_search_kernel",
                   "wave_kernel", "wave_decode_kernel", "subpel_scan_kernel",
-                  "encode_tail_kernel", "decode_tail_kernel"):
+                  "encode_tail_kernel", "decode_tail_kernel",
+                  "unpack_yuv5d_kernel<0>", "unpack_yuv5d_kernel<1>"):
         if kname not in usage:
             fail(f"ptxas reported nothing for {kname}")
         log(f"phase 2b: {kname}: {usage[kname]}")
 
     claunches, csum = phase_conformance(torch, np, gpu)
     by_path = {name: {"fast": launches[name], "conformance": claunches[name]}
-               for name in ("deblock_frame", "decode_tail")}
+               for name in ("deblock_frame", "decode_tail", "unpack_yuv5d")}
     launches.update(claunches)
     for name, counts in by_path.items():
         launches[name] = sum(counts.values())
@@ -2700,6 +2795,10 @@ def main():
                 "src/cairo_tpu/tpu/engine.py:219"),
         "K11": ("decode_tail", "src/cairo_tpu_torch/gpu/csrc/tail.cu",
                 "src/cairo_tpu/tpu/engine.py:329"),
+        # no Pallas kernel: the XLA fusions of the 5-bit source wire's
+        # unpack inside the encode steps
+        "K12": ("unpack_yuv5d", "src/cairo_tpu_torch/gpu/csrc/wire.cu",
+                "src/cairo_tpu/tpu/wire.py:263"),
     }
     instances = dict(K1="chroma_max_kernel", K2="dense_select_kernel",
                      K3="gather_windows_kernel<2>",
@@ -2708,7 +2807,7 @@ def main():
                      K5="inter_search_kernel", K6="wave_kernel",
                      K7="wave_decode_kernel", K8="deblock_kernel",
                      K9="subpel_scan_kernel", K10="encode_tail_kernel",
-                     K11="decode_tail_kernel")
+                     K11="decode_tail_kernel", K12="unpack_yuv5d_kernel<1>")
     kernels = []
     for k, (name, source, replaces) in meta.items():
         r = recs[k]
@@ -2730,7 +2829,8 @@ def main():
         # K7's intra frame beside its inter frame
         kernels[-1].update({k: v for k, v in r.items()
                             if k.startswith(("luma_", "chroma_", "intra_",
-                                             "single_", "all_copy_"))})
+                                             "single_", "all_copy_",
+                                             "planes_"))})
         if k == "K9":
             kernels[-1]["taken_by_case"] = r["taken"]
             kernels[-1]["targets_by_case"] = r["targets"]
@@ -2740,6 +2840,8 @@ def main():
         by_path["deblock_frame"]
     kernels[list(meta).index("K11")]["launches_by_path"] = \
         by_path["decode_tail"]
+    kernels[list(meta).index("K12")]["launches_by_path"] = \
+        by_path["unpack_yuv5d"]
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -107,14 +107,12 @@ def conformance_encode_step(src_wire, state, *, aligned_w, aligned_h,
     block table fields and coefficient planes of the frame; the state is
     updated in place."""
     hdr = src_wire[:8].view(I32)
-    unpack = (wire_mod.unpack_yuv5d if src_fmt == "yuv5d"
-              else wire_mod.unpack_yuv8)
-    y_in, u_in, v_in = unpack(src_wire[8:], aligned_h, aligned_w, frame_w,
-                              frame_h)
-    src = (ops.plane_to_blocks(y_in, MB).contiguous(),
-           ops.plane_to_blocks(u_in, MB // 2).contiguous(),
-           ops.plane_to_blocks(v_in, MB // 2).contiguous())
-    self_sad = src[0].abs().sum(dim=(1, 2), dtype=I32)
+    if src_fmt == "yuv5d":
+        src, self_sad = wire_mod.unpack_yuv5d_blocks(
+            src_wire[8:], aligned_h, aligned_w, frame_w, frame_h)
+    else:
+        src, self_sad = wire_mod.source_blocks(*wire_mod.unpack_yuv8(
+            src_wire[8:], aligned_h, aligned_w, frame_w, frame_h))
     if is_inter:
         inter_best, inter_pred = dense_inter(src, state, hdr)
     else:

@@ -15,6 +15,14 @@ library apply unchanged:
 Device-side functions take and return torch tensors; the `*_np` helpers
 and `unpack_encode_wire` / `apply_coo_np` run on the host in numpy.
 Bit casts use `Tensor.view(dtype)` on contiguous little-endian buffers.
+
+The 5-bit-delta source wire has a kernel, K12 (csrc/wire.cu), in place of
+the XLA-fused unpack of cairo_tpu/tpu/wire.py. Dispatch, one rule per
+wrapper: a CPU tensor takes the plain version, a CUDA tensor launches
+K12 or raises; each launch adds one to LAUNCHES["unpack_yuv5d"].
+unpack_yuv5d gives the planes engine.encode_step reads, and
+unpack_yuv5d_blocks the conformance step's source blocks and self_sad
+(source_blocks of the planes), each from one launch.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tables
+from . import _build, ops
+
+MB = tables.MACROBLOCK_SIZE
 I32 = torch.int32
 Y_SHIFT = 16          # yuv wire: Y stored as value-16 (legal [16, 271])
 EXC_K = 4096          # yuv wire exception capacity (values off the window)
@@ -29,6 +41,11 @@ COO_K = 1 << 17       # residual COO capacity
 COO_SMALL = 1 << 14   # encode-wire head / small decode-upload bucket
 UP_EXC_K = 8192       # 5-bit-delta uplink exception capacity
 DEXC_K = 16384        # 5-bit-delta downlink exception capacity
+K12_MAX_WIDTH = 1 << 14   # K12's widest aligned frame (csrc/wire.cu)
+
+LAUNCHES = {"unpack_yuv5d": 0}
+# ctypes signature of csrc/wire.cu's cairo_unpack_yuv5d, the stream last
+UNPACK_SIGNATURE = "piiiiippppp"
 
 
 def _compact(vals, mask, k, val_dtype=torch.int16):
@@ -215,11 +232,10 @@ def _prefix_planes(d, ah, aw):
             plane(d[ys + cs:], ah // 2, aw // 2))
 
 
-def unpack_yuv5d(buf, ah, aw, frame_w, frame_h):
-    """Device side: 5-bit-delta source wire -> (y, u, v) int32 planes.
-    Layout: [UP_EXC_K int32 exc_pos | UP_EXC_K int16 exc_val | packed
-    5-bit fields]. Exceptions carry (flat position, true delta); sentinel
-    positions past the planes are dropped."""
+def unpack_yuv5d_plain(buf, ah, aw, frame_w, frame_h):
+    """unpack_yuv5d as torch ops. A position listed twice among the
+    exceptions takes either value here (torch's scatter leaves the order
+    open); K12 and JAX's scatter take the later entry."""
     exc_pos = _view(buf[:4 * UP_EXC_K], I32).long()
     exc_val = _view(buf[4 * UP_EXC_K:6 * UP_EXC_K], torch.int16).to(I32)
     words = _view(buf[6 * UP_EXC_K:], I32).reshape(-1, 5)
@@ -230,6 +246,66 @@ def unpack_yuv5d(buf, ah, aw, frame_w, frame_h):
     y = torch.where(_frame_mask(ah, aw, frame_h, frame_w, buf.device),
                     y + 16, 0)
     return y, u, v
+
+
+def source_blocks(y, u, v):
+    """(y, u, v) int32 planes -> the conformance step's source: ((N, 16,
+    16), (N, 8, 8), (N, 8, 8)) int32 blocks in raster MB order, and
+    self_sad, the (N,) int32 sum of |Y| of each block."""
+    src = (ops.plane_to_blocks(y, MB).contiguous(),
+           ops.plane_to_blocks(u, MB // 2).contiguous(),
+           ops.plane_to_blocks(v, MB // 2).contiguous())
+    return src, src[0].abs().sum(dim=(1, 2), dtype=I32)
+
+
+def unpack_yuv5d_blocks_plain(buf, ah, aw, frame_w, frame_h):
+    return source_blocks(*unpack_yuv5d_plain(buf, ah, aw, frame_w, frame_h))
+
+
+def unpack_yuv5d(buf, ah, aw, frame_w, frame_h):
+    """Device side: 5-bit-delta source wire -> (y, u, v) int32 planes.
+    Layout: [UP_EXC_K int32 exc_pos | UP_EXC_K int16 exc_val | packed
+    5-bit fields]. Exceptions carry (flat position, true delta); sentinel
+    positions past the planes are dropped."""
+    if buf.device.type == "cpu":
+        return unpack_yuv5d_plain(buf, ah, aw, frame_w, frame_h)
+    return _launch_unpack(buf, ah, aw, frame_w, frame_h, blocks=False)
+
+
+def unpack_yuv5d_blocks(buf, ah, aw, frame_w, frame_h):
+    """Device side: 5-bit-delta source wire -> source_blocks of its
+    planes: ((Y, U, V) blocks, self_sad)."""
+    if buf.device.type == "cpu":
+        return unpack_yuv5d_blocks_plain(buf, ah, aw, frame_w, frame_h)
+    return _launch_unpack(buf, ah, aw, frame_w, frame_h, blocks=True)
+
+
+def _launch_unpack(buf, ah, aw, frame_w, frame_h, blocks):
+    """K12 over a CUDA wire, its outputs views into one allocation."""
+    if ah % MB or aw % MB or not 0 < aw <= K12_MAX_WIDTH or ah <= 0:
+        raise ValueError(f"unpack_yuv5d: aligned dims must be positive "
+                         f"multiples of {MB}, the width at most "
+                         f"{K12_MAX_WIDTH}; got {ah}x{aw}")
+    ys, cs = ah * aw, (ah // 2) * (aw // 2)
+    if 5 * (ys + 2 * cs) >= 2 ** 31:
+        raise ValueError("unpack_yuv5d: 2^31 wire bits or more")
+    _build.check(buf, "buf", torch.uint8, (yuv5d_nbytes(ah, aw),))
+    if buf.data_ptr() % 4:   # the wire's words as aligned 4-byte loads
+        buf = buf.clone()
+    n = (ah // MB) * (aw // MB)
+    out = torch.empty(ys + 2 * cs + (n if blocks else 0), dtype=I32,
+                      device=buf.device)
+    y, u, v = out[:ys], out[ys:ys + cs], out[ys + cs:ys + 2 * cs]
+    sad = out[ys + 2 * cs:] if blocks else None
+    fn = _build.kernel_fn("cairo_unpack_yuv5d", UNPACK_SIGNATURE)
+    _build.launch(fn, buf.device, buf.data_ptr(), ah, aw, frame_w, frame_h,
+                  int(blocks), y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                  sad.data_ptr() if blocks else None)
+    LAUNCHES["unpack_yuv5d"] += 1
+    if blocks:
+        return ((y.view(n, MB, MB), u.view(n, MB // 2, MB // 2),
+                 v.view(n, MB // 2, MB // 2)), sad)
+    return y.view(ah, aw), u.view(ah // 2, aw // 2), v.view(ah // 2, aw // 2)
 
 
 # --------------------------------------------------------------------------

@@ -21,6 +21,8 @@ from cairo_tpu_torch.gpu import (_build, api, cuda_deblock, cuda_inter,
                                  shard, tiled, wavefront, wire)
 from cairo_tpu_torch.synth import synth_frames
 from util_deblock import KINDS, SIZES, TILE_SIZES, deblock_case
+from util_wire import (CASES, content_frame, last_entries_only, rewritten,
+                       yuv5d_wire)
 
 RING = 4
 
@@ -1734,3 +1736,116 @@ def test_decode_tail_unaligned_planes(dev, which):
     _check_tail("decode_tail", call[:5], stale=call[5], residual=True)
     _same_outputs(cuda_tail.decode_tail(*call[:5], stale=call[5],
                                         residual=True), want)
+
+
+# ------------------------------------------------- K12 unpack_yuv5d
+
+UP_AW, UP_AH, UP_W, UP_H = 640, 512, 630, 500
+
+
+def _check_unpack(dev, wire_np, ah, aw, fw, fh, plain_np=None):
+    """K12 on the card in both layouts against the plain version over
+    `plain_np` (the same wire by default), twice: two launches a call of
+    the pair, outputs exact, contiguous int32, and the same on both
+    runs."""
+    buf = _t(wire_np[8:]).to(dev)
+    ref = _t((wire_np if plain_np is None else plain_np)[8:]).to(dev)
+    want_p = wire.unpack_yuv5d_plain(ref, ah, aw, fw, fh)
+    want_b = wire.unpack_yuv5d_blocks_plain(ref, ah, aw, fw, fh)
+    runs = []
+    for _ in range(2):
+        before = wire.LAUNCHES["unpack_yuv5d"]
+        planes = wire.unpack_yuv5d(buf, ah, aw, fw, fh)
+        blocks, sad = wire.unpack_yuv5d_blocks(buf, ah, aw, fw, fh)
+        torch.cuda.synchronize()
+        assert wire.LAUNCHES["unpack_yuv5d"] - before == 2
+        runs.append((*planes, *blocks, sad))
+    for got in runs:
+        for g, w in zip(got, (*want_p, *want_b[0], want_b[1])):
+            assert g.dtype == torch.int32 and g.is_contiguous()
+            assert g.shape == w.shape
+            _eq(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("content", ["synth", "edges", "noise"])
+def test_unpack_yuv5d_matches_plain(dev, content):
+    """The contents of test_torch_wire.py's uplink test; noise packs past
+    UP_EXC_K exceptions, a zeroed section: 8192 entries at position 0."""
+    frame = content_frame(content, UP_W, UP_H)
+    _check_unpack(dev, yuv5d_wire(frame, UP_AW, UP_AH), UP_AH, UP_AW, UP_W,
+                  UP_H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["negative", "out_of_range", "duplicates",
+                                  "column0", "crowded_rows", "full"])
+def test_unpack_yuv5d_exception_positions(dev, case):
+    """Negative, dropped and repeated exception positions: K12 on the raw
+    wire against the plain version on the wire without the entries a
+    later one overrides (the later entry wins, as in JAX's scatter)."""
+    base = yuv5d_wire(content_frame("synth", UP_W, UP_H), UP_AW, UP_AH)
+    raw = rewritten(base, UP_AW, UP_AH, case, seed=CASES.index(case))
+    _check_unpack(dev, raw, UP_AH, UP_AW, UP_W, UP_H,
+                  last_entries_only(raw, UP_AW, UP_AH))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fh,fw", [(1080, 1920), (144, 176), (56, 72),
+                                   (16, 16), (512, 16), (16, 640),
+                                   (40, 2000)],
+                         ids=lambda v: str(v))
+def test_unpack_yuv5d_sizes(dev, fh, fw):
+    """synth content at 1080p, at widths that are not whole 32-field
+    groups or 128-column steps, one MB, one MB column, one MB row."""
+    ah, aw = -(-fh // 16) * 16, -(-fw // 16) * 16
+    frame = synth_frames(fw, fh, 2, seed=fh + fw)[1]
+    _check_unpack(dev, yuv5d_wire(frame, aw, ah), ah, aw, fw, fh)
+
+
+@pytest.mark.cuda
+def test_unpack_yuv5d_checks_its_arguments(dev):
+    """A wire of the wrong length or dims K12 does not take raise; a wire
+    that does not start on 4 bytes is copied and unpacks the same; a CPU
+    wire takes the plain version and launches nothing."""
+    w = yuv5d_wire(content_frame("edges", UP_W, UP_H), UP_AW, UP_AH)
+    buf = _t(w[8:]).to(dev)
+    with pytest.raises(ValueError, match="expected shape"):
+        wire.unpack_yuv5d(buf[:-20], UP_AH, UP_AW, UP_W, UP_H)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        wire.unpack_yuv5d_blocks(buf, UP_AH - 8, UP_AW, UP_W, UP_H)
+    with pytest.raises(ValueError, match="at most"):
+        wire.unpack_yuv5d(torch.zeros(wire.yuv5d_nbytes(16, 16400),
+                                      dtype=torch.uint8, device=dev),
+                          16, 16400, 16400, 16)
+    shifted = torch.empty(buf.numel() + 2, dtype=torch.uint8, device=dev)
+    shifted[2:].copy_(buf)
+    assert shifted[2:].data_ptr() % 4
+    for g, r in zip(wire.unpack_yuv5d(shifted[2:], UP_AH, UP_AW, UP_W, UP_H),
+                    wire.unpack_yuv5d(buf, UP_AH, UP_AW, UP_W, UP_H)):
+        _eq(g, r)
+    before = wire.LAUNCHES["unpack_yuv5d"]
+    wire.unpack_yuv5d(buf.cpu(), UP_AH, UP_AW, UP_W, UP_H)
+    assert wire.LAUNCHES["unpack_yuv5d"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["conformance", "fast"])
+def test_k12_launches_once_a_frame_and_keeps_the_bytes(dev, path):
+    """At 352x288 the frames upload the 5-bit wire: each encoded frame on
+    the card launches K12 once (the conformance inter step included), and
+    the chunks are the CPU encoder's, whose plain unpack is the torch
+    sequence K12 replaces."""
+    from cairo_tpu_torch import native
+
+    frames = synth_frames(352, 288, 4, seed=5)
+    assert all(native.rgb_to_yuv5d(f, 352, 288)[0] == "yuv5d"
+               for f in frames)
+    cls = api.ConformanceGpuEncoder if path == "conformance" \
+        else api.GpuEncoder
+    cpu, card = cls(device="cpu"), cls(device=dev)
+    for i, f in enumerate(frames):
+        before = wire.LAUNCHES["unpack_yuv5d"]
+        chunk = card.encode(f)
+        assert wire.LAUNCHES["unpack_yuv5d"] - before == 1, f"frame {i}"
+        assert chunk == cpu.encode(f), f"frame {i}"
